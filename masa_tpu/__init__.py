@@ -1,4 +1,4 @@
-"""masa_tpu — TPU-native long-sequence alignment engine.
+"""masa_tpu — long-sequence alignment engine in JAX (CUDA on NVIDIA GPUs).
 
 The library's one-call entry point:
 

@@ -13,7 +13,7 @@ import numpy as np
 
 from masa_tpu.types import AlignmentStart, ScoreParams
 
-HEADER = "masa_tpu: TPU-native long-sequence alignment engine"
+HEADER = "masa_tpu: long-sequence alignment engine (JAX; CUDA on NVIDIA GPUs)"
 
 _STARTS = {
     "*": AlignmentStart.ANYWHERE,
@@ -107,7 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "speculative per-slab prediction (the entry-point "
                         "selection of libmasa.cpp:698-757)")
     # multi-host: initialize the JAX distributed runtime before building
-    # the mesh (the DCN control plane; boundary columns still ride ICI)
+    # the mesh (the network control plane; boundary columns ride ppermute)
     p.add_argument("--coordinator", default=None,
                    help="host:port of process 0 for multi-host runs")
     p.add_argument("--num-hosts", type=int, default=1)
@@ -236,16 +236,11 @@ def main(argv=None) -> int:
             # library's Aligner.get_fork_weights probe.
             fw = [1.0] * int(fw[0])
         from masa_tpu.parallel.fork import run_fork
-        from masa_tpu.stages.core import default_backend
 
         if args.backend == "numpy":
             print("warning: --backend numpy unsupported for --fork; "
-                  "using the scan kernel twin", file=sys.stderr)
-            fork_backend = "scan"
-        else:
-            fork_backend = default_backend()
+                  "using the platform's strip kernel", file=sys.stderr)
         res = run_fork(seq0, seq1, fw, jcfg.work_dir, params,
-                       backend=fork_backend,
                        max_partition=args.maximum_partition,
                        output_format=(args.output_format
                                       if args.output_format != "binary"
@@ -266,23 +261,19 @@ def main(argv=None) -> int:
             auto_urls, pipelined_traceback, run_part_stage1, split_points,
         )
         from masa_tpu.stages import pipeline as _pl
-        from masa_tpu.stages.core import (
-            adaptive_config, default_backend, stage1_config,
-        )
+        from masa_tpu.stages.core import adaptive_config, stage1_config
 
-        # strips-layer backends are scan/pallas; 'numpy' has no streamed-
-        # border path, so it degrades to the scan twin with a warning
+        # 'numpy' has no streamed-border path: the strips run on the
+        # platform's kernel route, with a warning
         if args.backend == "numpy":
             print("warning: --backend numpy unsupported for weighted "
-                  "--split; using the scan kernel twin", file=sys.stderr)
-            backend = "scan"
-        else:
-            backend = default_backend()
+                  "--split; using the platform's strip kernel",
+                  file=sys.stderr)
         points = split_points(len(seq1), split_weights)
         urls = auto_urls(jcfg.work_dir, len(split_weights))
         score_only = args.stage_1 or args.no_flush
-        # a traceback follows unless score-only: pick the rung by total
-        # pipeline cost (special-row spacing), not forward GCUPS
+        # a traceback follows unless score-only: the strip comes with the
+        # special-row plan
         kcfg = (adaptive_config(len(seq0)) if score_only
                 else stage1_config(len(seq0), len(seq1), job.sra_limit()))
         iv = 0
@@ -296,7 +287,6 @@ def main(argv=None) -> int:
                 seq0, seq1, k, points, params, cfg=kcfg,
                 load_url=urls[k - 1] if k > 0 else None,
                 flush_url=urls[k] if k < len(split_weights) - 1 else None,
-                backend=backend,
                 buffered=False,
                 special_every=iv,
             ))
@@ -313,10 +303,10 @@ def main(argv=None) -> int:
             from masa_tpu.parallel.split import speculative_traceback
 
             cps, _reused = speculative_traceback(seq0, seq1, parts,
-                                                 params, backend=backend)
+                                                 params, backend="kernel")
         else:
             cps = pipelined_traceback(seq0, seq1, parts, params,
-                                      backend=backend)
+                                      backend="kernel")
         t2 = _time.time()
         pcfg = _pl.PipelineConfig(params=params,
                                   max_cells_stage5=jcfg.stage5_max_cells)
@@ -352,14 +342,10 @@ def main(argv=None) -> int:
 
         initialize_distributed(args.coordinator, args.num_hosts,
                                args.host_id)
-        from masa_tpu.stages.core import default_backend as _dbk
-
         nsh = int(split_weights[0])
         mesh = make_mesh(nsh)
-        sh_backend = "scan" if args.backend == "numpy" else _dbk()
         if args.stage_1 or args.no_flush:
             res = sharded_stage1(seq0, seq1, mesh, params=params,
-                                 backend=sh_backend,
                                  prune=not args.no_block_pruning)
             print(f"stage1 (sharded over {nsh} devices): "
                   f"best={res.best}")
@@ -368,11 +354,10 @@ def main(argv=None) -> int:
 
         t0 = _time.time()
         b, aln = sharded_align(seq0, seq1, mesh, params=params,
-                               backend=sh_backend,
                                prune=not args.no_block_pruning,
                                traceback=args.traceback,
                                max_cells_stage5=jcfg.stage5_max_cells,
-                               state_dir=job.path("sharded"))
+                               state_dir=job.path("sharded"), log=log)
         fmt = (args.output_format if args.output_format != "binary"
                else "text")
         runner.finish_alignment(job, seq0, seq1, aln, fmt=fmt, log=log,
@@ -398,12 +383,8 @@ def main(argv=None) -> int:
 
         log(f"seq1 exceeds per-run capability "
             f"({caps.maximum_seq1_len} bp): splitting columns")
-        from masa_tpu.stages.core import default_backend
-
         b, aln = align_oversize(
             seq0, seq1, caps.maximum_seq1_len, jcfg.work_dir, params,
-            backend=default_backend() if args.backend == "auto"
-            else args.backend,
         )
         fmt = (args.output_format if args.output_format != "binary"
                else "text")

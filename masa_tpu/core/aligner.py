@@ -5,7 +5,8 @@ Mirrors the reference's portability architecture: IAligner
 manager (core/manager.py) drives it.  Like MASA's CUDAlign/OpenMP/...
 extensions, two engines implement the contract here:
 
-  * TPUAligner — the Pallas/scan wavefront (the CUDAligner analogue,
+  * KernelAligner — the wavefront strip kernel: CUDA on a GPU, the
+    lax.scan twin on the CPU (the CUDAligner analogue,
     src/CUDAligner.cpp).
   * CPUAligner — the NumPy oracle (the CPUBlockProcessor analogue,
     processors/CPUBlockProcessor.cpp:113-174), the differential baseline.
@@ -87,23 +88,25 @@ class Aligner(abc.ABC):
 
 
 def dev_pads(n1: int) -> tuple[int, int]:
-    """The (pad0, pad1) sentinel paddings TPUAligner uses for its
+    """The (pad0, pad1) sentinel paddings KernelAligner uses for its
     device-resident sequence views — shared with the reverse-march
     seeding so flipped views land on the exact cache keys the aligner
     will look up."""
     return 131072 + 8, n1 // 8 + 32768 + 512
 
 
-class TPUAligner(Aligner):
-    """The TPU wavefront extension (strip kernel; scan twin on CPU)."""
+class KernelAligner(Aligner):
+    """The wavefront extension: strip kernel of the platform's route
+    (utils.devices.kernel_route — CUDA on a GPU, scan twin on CPU)."""
 
     def __init__(self, cfg: wf.WavefrontConfig | None = None,
-                 backend: str | None = None):
+                 route: str | None = None):
         super().__init__()
-        from masa_tpu.stages.core import default_backend, default_config
+        from masa_tpu.stages.core import default_config
+        from masa_tpu.utils.devices import kernel_route
 
         self.cfg = cfg or default_config()
-        self.backend = backend or default_backend()
+        self.route = route or kernel_route()
 
     def get_capabilities(self) -> AlignerCapabilities:
         return AlignerCapabilities()
@@ -125,9 +128,9 @@ class TPUAligner(Aligner):
         )
         iv = mgr.get_special_row_interval()
         if iv:
-            # the pallas kernel flushes interior rows mid-strip at
-            # alpha*128 granularity; other backends round to strips
-            iv = strips.snap_special_interval(iv, cfg, self.backend)
+            # the kernels flush interior rows mid-strip at alpha*128
+            # granularity
+            iv = strips.snap_special_interval(iv, cfg)
 
         def on_row(r, bus_h, bus_f):
             mgr.dispatch_row(p.i0 + r, bus_h, bus_f)
@@ -143,7 +146,7 @@ class TPUAligner(Aligner):
 
         def stop(out, rows_done, strip_rows, col_off):
             if cfg.track_best and "best_v" in out:
-                s, bi, bj = wf.resolve_best(out["best_v"], out["best_t"])
+                s, bi, bj = wf.resolve_best(out["best_v"], out["best_j"])
                 strip_top = rows_done - strip_rows
                 mgr.dispatch_score(p.i0 + strip_top + bi + 1,
                                    p.j0 + col_off + bj + 1, s)
@@ -167,25 +170,19 @@ class TPUAligner(Aligner):
 
         # device-resident sequences: uploaded once (cached across
         # partitions/hops), sliced on-device per strip — run_partition
-        # falls back to the host data path when borders are CUSTOM
+        # falls back to the host data path when borders are CUSTOM.
+        # Uploads must amortize: take them when cached already, or when
+        # the partition spans enough full strips
         dev_slices = None
-        if self.backend == "pallas" and not cfg.interpret:
-            import jax as _jax
-
-            if _jax.default_backend() != "cpu":
-                pad0, pad1 = dev_pads(len(self._seq1))
-                cached = (
-                    wf.dev_seq_peek(self._seq0, wf.A_SENTINEL, pad0)
-                    is not None
-                    and wf.dev_seq_peek(self._seq1, wf.B_SENTINEL, pad1)
-                    is not None)
-                # uploads (~0.4 s/MB) must amortize: take them when
-                # cached already, or when the partition spans enough
-                # full strips to win the per-strip savings back
-                if cached or p.height >= 4 * cfg.rows:
-                    s0x = wf.dev_seq(self._seq0, wf.A_SENTINEL, pad0)
-                    s1x = wf.dev_seq(self._seq1, wf.B_SENTINEL, pad1)
-                    dev_slices = (s0x, p.i0, s1x, p.j0)
+        pad0, pad1 = dev_pads(len(self._seq1))
+        cached = (
+            wf.dev_seq_peek(self._seq0, wf.A_SENTINEL, pad0) is not None
+            and wf.dev_seq_peek(self._seq1, wf.B_SENTINEL, pad1)
+            is not None)
+        if cached or p.height >= 4 * cfg.rows:
+            s0x = wf.dev_seq(self._seq0, wf.A_SENTINEL, pad0)
+            s1x = wf.dev_seq(self._seq1, wf.B_SENTINEL, pad1)
+            dev_slices = (s0x, p.i0, s1x, p.j0)
 
         # device-resident goal matching: the cut stays on device, so the
         # reverse pass's last row must too (no O(n) pull per hop)
@@ -196,7 +193,7 @@ class TPUAligner(Aligner):
             mgr.get_first_row_init_type(), mgr.get_first_column_init_type(),
             first_row=mgr.receive_first_row(),
             first_col=mgr.receive_first_column(),
-            backend=self.backend,
+            route=self.route,
             special_every=iv,
             on_special_row=on_row if iv else None,
             stop_check=stop,

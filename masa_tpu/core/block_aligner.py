@@ -1,7 +1,7 @@
 """Block-scheduled aligner + thread-safe aligner wrapper.
 
 The reference keeps two scheduling families under the same IAligner
-contract: the diagonal family (AbstractDiagonalAligner — our TPUAligner's
+contract: the diagonal family (AbstractDiagonalAligner — our KernelAligner's
 strip loop) and the block family (AbstractBlockAligner,
 libmasa/aligners/AbstractBlockAligner.cpp:73-644), where a Grid cuts the
 partition into blocks, blocks are visited in a dependency-respecting
@@ -15,7 +15,7 @@ analogue), per-block generic pruning (BlockPruningGenericN2 semantics),
 special-row dispatch at block-row boundaries.  It exists for the same
 reasons the reference's does — a second, independently-scheduled engine
 under the identical manager contract (differential testing of the
-TPU path) and a home for block-granular features.
+strip-kernel path) and a home for block-granular features.
 
 `SafeAligner` is the AbstractAlignerSafe analogue
 (libmasa/aligners/AbstractAlignerSafe.cpp:27-136): it serializes the

@@ -191,14 +191,17 @@ class AlignerManager:
         """Column-border H values rows 0..height and the synthesized
         fresh-gap F along that border (stages.core.border_gap_values:
         F(r) = max_{r0<r}(H(r0) - open - (r-r0)*ext))."""
-        if self._col_h_cache is None or len(self._col_h_cache) <= height:
+        cached = 0 if self._col_h_cache is None else len(self._col_h_cache)
+        if cached <= height:
             from masa_tpu.stages.core import border_gap_values
 
             if self.first_col_init == InitType.CUSTOM:
                 col_h = np.asarray(self._first_col[0], np.int64)
             else:
-                col_h, _ = border_cells(height + 1, self.first_col_init,
-                                        self.params)
+                # grow geometrically: special rows arrive in increasing
+                # order, and each rebuild is O(height)
+                col_h, _ = border_cells(max(height + 1, 2 * cached),
+                                        self.first_col_init, self.params)
                 col_h = col_h.astype(np.int64)
             self._col_h_cache = col_h
             self._col_f_syn = border_gap_values(col_h, self.params)
@@ -261,7 +264,6 @@ class AlignerManager:
         reverse pass's device last-row bus against the device-cached cut
         (wf.goal_match_device) and pull only the 3-scalar verdict."""
         from masa_tpu.ops import wavefront as wf
-        import jax.numpy as jnp
 
         if self.goal_base_dev is None:
             return
@@ -270,9 +272,9 @@ class AlignerManager:
         rev0f = (self.reverse_f0 if self.reverse_f0 is not None
                  else self._col_border(row)[1])
         out = np.asarray(wf.goal_match_device(
-            dev_h, dev_f, bus_h, bus_f, jnp.int32(cj),
-            jnp.int32(self.goal_score), jnp.int32(rev0h),
-            jnp.int32(rev0f), W1=W1, go=self.params.gap_open))
+            dev_h, dev_f, bus_h, bus_f, np.int32(cj),
+            np.int32(self.goal_score), np.int32(rev0h),
+            np.int32(rev0f), W1=W1, go=self.params.gap_open))
         status, k, score = (int(x) for x in out)
         if status == 4:
             mres = MatchResult(False, -1, 0, MatchType.ALIGNED)

@@ -150,8 +150,8 @@ def _unblob(raw: bytes) -> list[np.ndarray]:
 def _aligned_view(a: np.ndarray, dt) -> np.ndarray:
     """a.view(dt) that never yields an unaligned array: blob payloads sit
     at arbitrary byte offsets inside the file bytes, and NumPy reads of an
-    unaligned wide view crawl element-wise (measured ~30x: 6.2 s to decode
-    a 5M 'none' row).  The byte-level copy is a plain memcpy."""
+    unaligned wide view crawl element-wise (an order of magnitude slower
+    on a chromosome-scale row).  The byte-level copy is a plain memcpy."""
     if a.ctypes.data % np.dtype(dt).itemsize:
         a = a.copy()
     return a.view(dt)

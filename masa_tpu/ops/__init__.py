@@ -1,1 +1,2 @@
-"""Compute kernels: NumPy oracle, Pallas wavefront, small-matrix DP."""
+"""Compute kernels: NumPy oracle, the wavefront strip (CUDA kernel and its
+lax.scan twin), row sweep, small-matrix DP."""

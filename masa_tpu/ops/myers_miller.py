@@ -152,6 +152,18 @@ def reduce_partitions(
     return out
 
 
+def device_batched(strategy: "SplitStrategy | str") -> bool:
+    """Does stage 4 run on the device engine (ops/batched_mm)?  Only the
+    OPTIMIZED ladder, and only on the CUDA route: on an H100 it beats the
+    native C++ pool by ~10x once stage 4 has real work (PERF.md,
+    Findings); the CPU keeps the native/Python splitters."""
+    from masa_tpu.utils.devices import kernel_route
+
+    name = strategy.name if isinstance(strategy, SplitStrategy) \
+        else str(strategy)
+    return name == "OPTIMIZED" and kernel_route() == "cuda"
+
+
 def stage4_reduce(
     seq0: np.ndarray,
     seq1: np.ndarray,
@@ -166,19 +178,16 @@ def stage4_reduce(
     shared by the monolithic runner, the sharded multi-chip path, and the
     fork workers):
 
-      * on a TPU backend with the OPTIMIZED ladder — the level-batched
-        device engine (ops/batched_mm.py), splitting only down to what
-        stage 5 absorbs directly (its DP is dynamic-size, unlike the
-        reference's static 1024^2 buffers that force maximum-partition=16);
+      * the device engine (ops/batched_mm.py) where device_batched says
+        so, splitting only down to what stage 5 absorbs directly (its DP
+        is dynamic-size, unlike the reference's static 1024^2 buffers
+        that force maximum-partition=16);
       * else the native C++ ladder when built;
       * else the Python splitter (any strategy — the differential twin).
     """
     if not max_partition or len(cps) < 2:
         return cps
-    import jax
-
-    if (jax.default_backend() == "tpu"
-            and strategy == SplitStrategy.OPTIMIZED):
+    if device_batched(strategy):
         import math
 
         from masa_tpu.ops.batched_mm import reduce_partitions_batched

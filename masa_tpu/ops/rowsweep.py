@@ -1,5 +1,5 @@
 """Row-sweep DP engine: the affine-gap recurrence as a `lax.scan` over
-ROWS with one cumulative max per row — pure XLA, no Mosaic, no
+ROWS with one cumulative max per row — pure XLA, no custom kernel, no
 anti-diagonal skew.
 
 Per row (matching ops/oracle.dp_rows' conventions exactly — the bus
@@ -20,10 +20,10 @@ the oracle's lazy fixpoint converges in this single pass.
 The scan length is m (rows), not m+n (anti-diagonals): for the
 traceback stages' odd-height tails, deep stage-4 levels, and partial
 strips this replaces second-long wavefront scans with millisecond
-sweeps, compiles in seconds as plain XLA, and has NO per-shape Mosaic
-keys.  The stage-1 hot loop keeps the Mosaic wavefront kernel (the
-cummax roughly doubles the per-cell VPU work — a fine trade wherever
-dispatch/compile dominates, a poor one for the 99% kernel).
+sweeps and compiles in seconds as plain XLA.  The stage-1 hot loop
+keeps the wavefront strip kernel (the cummax roughly doubles the
+per-cell work — a fine trade wherever dispatch/compile dominates, a
+poor one for the 99% kernel).
 
 Chaining: the returned (h, f) row IS the next sweep's (row_h, row_f)
 input — identical to the wavefront bus contract.

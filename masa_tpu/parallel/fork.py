@@ -35,6 +35,26 @@ def _merge_best(a: tuple, b: tuple) -> tuple:
     return a if ka >= kb else b
 
 
+def fork_pinning(n_workers: int, platform: str | None) -> list[dict]:
+    """Per-worker environment additions.  On the GPU (``platform`` "gpu",
+    or unset with cards visible and JAX not held to the CPU) worker k
+    sees only card k through CUDA_VISIBLE_DEVICES, and more workers than
+    cards is an error; on the CPU nothing is pinned.  Decided without
+    touching JAX: the parent must leave every card to its workers."""
+    from masa_tpu.utils.devices import visible_gpus
+
+    if platform is None:
+        on_cpu = os.environ.get("JAX_PLATFORMS", "").strip() == "cpu"
+        platform = "cpu" if on_cpu or not visible_gpus() else "gpu"
+    if platform != "gpu":
+        return [{} for _ in range(n_workers)]
+    cards = visible_gpus()
+    if n_workers > len(cards):
+        raise ValueError(f"--fork {n_workers}: only {len(cards)} GPU(s) "
+                         f"visible; each worker needs a card of its own")
+    return [{"CUDA_VISIBLE_DEVICES": cards[k]} for k in range(n_workers)]
+
+
 def worker_main(config_path: str) -> int:
     """One slab worker (the forked child, libmasa.cpp:556-577)."""
     with open(config_path) as f:
@@ -67,7 +87,6 @@ def worker_main(config_path: str) -> int:
     N = cfg["nparts"]
     kcfg = (wf.WavefrontConfig(**cfg["kernel_cfg"])
             if cfg.get("kernel_cfg") else None)
-    backend = cfg.get("backend", "scan")
     pool = AlignerPool(cfg["shared_dir"], k, N,
                        timeout=cfg.get("timeout", 300.0))
 
@@ -79,7 +98,6 @@ def worker_main(config_path: str) -> int:
         seq0, seq1, k, points, params, kcfg,
         load_url=urls[k - 1] if k > 0 else None,
         flush_url=urls[k] if k < N - 1 else None,
-        backend=backend,
         special_every=special_every,
     )
 
@@ -146,8 +164,7 @@ def worker_main(config_path: str) -> int:
         my4 = pipeline.stage3_densify(seq0, seq1, pcfg, my_cps)
         mps = cfg.get("max_partition", 16)
         if mps:
-            # engine chosen by this worker's pinned backend (TPU workers
-            # use the level-batched device engine)
+            # engine chosen by this worker's kernel route
             my4 = mm.stage4_reduce(
                 seq0, seq1, my4, params, mps,
                 stage5_max_cells=pcfg.max_cells_stage5)
@@ -219,7 +236,6 @@ def run_fork(
     work_dir: str,
     params: ScoreParams = ScoreParams(),
     kernel_cfg=None,
-    backend: str = "scan",
     base_port: int = 7300,
     max_partition: int = 16,
     timeout: float = 600.0,
@@ -232,10 +248,15 @@ def run_fork(
     """Spawn one worker process per slab and reap them
     (fork_multi_process + the wait loop, libmasa.cpp:540-642).
 
+    On a GPU each worker is pinned to its own card through
+    CUDA_VISIBLE_DEVICES (fork_pinning); a JAX process reserves most of
+    a card's memory, so two workers cannot share one.
+
     Returns the node-0 result dict (score, stats, crosspoints)."""
     from masa_tpu.parallel.split import auto_urls, split_points
 
     N = len(weights)
+    pins = fork_pinning(N, platform)
     os.makedirs(work_dir, exist_ok=True)
     shared = os.path.join(work_dir, "shared")
     os.makedirs(shared, exist_ok=True)
@@ -258,7 +279,6 @@ def run_fork(
             "shared_dir": shared,
             "params": [params.match, params.mismatch, params.gap_open,
                        params.gap_ext],
-            "backend": backend,
             "max_partition": max_partition,
             "timeout": timeout,
             "device": devices[k] if devices else None,
@@ -275,6 +295,7 @@ def run_fork(
         with open(cpath, "w") as f:
             json.dump(cfg, f)
         env = dict(os.environ)
+        env.update(pins[k])
         if extra_env:
             env.update(extra_env)
         procs.append(subprocess.Popen(

@@ -2,7 +2,8 @@
 
 Replaces the reference's fork/TCP machinery (libmasa.cpp:540-642,
 io/SocketCellsReader.cpp) with the JAX distributed runtime: `ppermute`
-over ICI for boundary columns, `jax.distributed` over DCN for control.
+between devices for boundary columns, `jax.distributed` over the network
+for control.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ def make_mesh(n_devices: int | None = None, axis: str = "x") -> Mesh:
 def initialize_distributed(coordinator: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None) -> None:
-    """Multi-host init (jax.distributed over DCN).  No-op when single
+    """Multi-host init (jax.distributed over the network).  No-op when single
     process."""
     if num_processes and num_processes > 1:
         jax.distributed.initialize(

@@ -3,8 +3,8 @@
 The DP matrix is column-partitioned across a 1-D device mesh: device d owns
 a vertical slab of seq1 (split_sequences, libmasa.cpp:497-535).  Strips
 pipeline diagonally: in round r, device d computes strip ``r - d``; the
-strip's last column (H, E) flows to device d+1 via ``ppermute`` over ICI —
-replacing the reference's socket cell streams
+strip's last column (H, E) flows to device d+1 via ``ppermute`` (NVLink
+between GPUs) — replacing the reference's socket cell streams
 (io/SocketCellsReader.cpp:33-80) and Buffer2 double-buffering (the compiler
 overlaps the collective with the next strip's compute).
 
@@ -60,47 +60,31 @@ class ShardedFullResult:
     pruned_strips: np.ndarray | None = None
 
 
-def _strip_fn(cfg, W, backend, h_true: int | None = None):
-    """Run one strip over a local slab given border state.  Returns
-    (bus_h, bus_f, lastcol_h, lastcol_e, best_v, best_t).
+def _strip_fn(cfg, W, route):
+    """Run one strip over a local slab given border state and its true
+    height (call data: the partial tail strip, when m % rows != 0, stops
+    at the true matrix row, so its bus is the real last row).  Returns
+    (bus_h, bus_f, lastcol_h, lastcol_e, best_v, best_j), the last
+    column -INF past the true height."""
+    blen = wf.padded_len(cfg, W)
 
-    ``h_true`` < cfg.rows builds the PARTIAL-strip variant (the tail
-    strip when m % rows != 0): the DP stops at the true matrix row, so
-    the returned bus is the real last row instead of a sentinel-decayed
-    row ``m_pad``.  The last column pads to ``rows`` with -INF (unread
-    rows; keeps cond-branch shapes equal)."""
-    T = cfg.steps(W)
-    blen = wf.padded_len(cfg, W) if backend == "pallas" else T
-    h = cfg.rows if h_true is None else h_true
-
-    def run(a_strip, b_ext, bus_h, bus_f, init_h_vec, init_e_vec, corner):
-        a_lanes = wf.pack_lanes_jnp(cfg, a_strip)
-        init_h = wf.pack_lanes_jnp(cfg, init_h_vec)
-        init_e = wf.pack_lanes_jnp(cfg, init_e_vec)
-        if backend == "pallas":
-            out = wf.strip_pallas(
-                cfg, a_lanes, b_ext, bus_h, bus_f, init_h, init_e,
-                corner, W, h,
-            )
-            bh = wf.slice_bus(cfg, out["bus_h"], W, h)
-            bf = wf.slice_bus(cfg, out["bus_f"], W, h)
-        else:
-            out = wf.strip_scan(
-                cfg, a_lanes, b_ext, bus_h, bus_f, init_h, init_e,
-                corner, W, h,
-            )
-            bh, bf = out["bus_h"], out["bus_f"]
-        pad = blen - W
-        bh = jnp.concatenate([bh, jnp.full(pad, NEG, jnp.int32)])
-        bf = jnp.concatenate([bf, jnp.full(pad, NEG, jnp.int32)])
-        lch, lce = out["lastcol_h"], out["lastcol_e"]
-        if h < cfg.rows:
-            fill = jnp.full(cfg.rows - h, NEG, jnp.int32)
-            lch = jnp.concatenate([lch, fill])
-            lce = jnp.concatenate([lce, fill])
-        return (bh, bf, lch, lce, out["best_v"], out["best_t"])
+    def run(a_strip, b_ext, bus_h, bus_f, init_h, init_e, corner, h):
+        out = wf.strip(cfg, route, a_strip, b_ext, bus_h, bus_f, init_h,
+                       init_e, corner, nj=W, h_true=h)
+        return (out["bus_h"], out["bus_f"], out["lastcol_h"],
+                out["lastcol_e"], out["best_v"], out["best_j"])
 
     return run, blen
+
+
+def _default_cfg(route: str) -> wf.WavefrontConfig:
+    """The slab strip: 131072 rows on CUDA (enough strips per slab for
+    the diagonal pipeline to fill, each still 512 warp bands), the
+    4096-row default for the scan twin."""
+    if route == "cuda":
+        return wf.WavefrontConfig(alpha=4, rs=256, chunk=8192,
+                                  recurrence=Recurrence.SMITH_WATERMAN)
+    return wf.WavefrontConfig(recurrence=Recurrence.SMITH_WATERMAN)
 
 
 def _sharded_run(
@@ -109,7 +93,7 @@ def _sharded_run(
     mesh: Mesh,
     cfg: wf.WavefrontConfig | None,
     params: ScoreParams,
-    backend: str,
+    route: str | None,
     prune: bool,
     flush_stride: int,
     capture_cols: bool,
@@ -133,16 +117,13 @@ def _sharded_run(
     inter-chunk carry checkpoints to disk and an interrupted run RESUMES
     from the last completed chunk (Status-file semantics,
     common/Status.cpp:70-89)."""
+    from masa_tpu.utils.devices import kernel_route
+
     axis = mesh.axis_names[0]
     D = mesh.devices.size
+    route = route or kernel_route()
     if cfg is None:
-        # Mosaic path wants the big fused strip (the single-chip stage-1
-        # rung); the scan twin keeps the small CPU-friendly default
-        cfg = (wf.WavefrontConfig(alpha=8, rs=32, chunk=8192,
-                                  recurrence=Recurrence.SMITH_WATERMAN)
-               if backend == "pallas"
-               else wf.WavefrontConfig(
-                   recurrence=Recurrence.SMITH_WATERMAN))
+        cfg = _default_cfg(route)
     # the kernels score from the config: ALWAYS bake the caller's params
     # in (a caller-supplied cfg with default scores must not silently
     # override non-default params)
@@ -151,7 +132,7 @@ def _sharded_run(
         match=params.match, mismatch=params.mismatch,
         gap_open=params.gap_open, gap_ext=params.gap_ext,
     )
-    R, L = cfg.rows, cfg.lanes
+    R = cfg.rows
     m, n = len(seq0), len(seq1)
     n_strips = -(-m // R)
     m_pad = n_strips * R
@@ -166,13 +147,11 @@ def _sharded_run(
     b_pad[:n] = seq1
     b_sharded = b_pad.reshape(D, W)
 
-    run_strip, blen = _strip_fn(cfg, W, backend)
-    # partial tail strip (m % R != 0): its own compiled variant stops at
-    # the true last row; without it the bus decays through the sentinel
-    # rows and the emitted "last row" is row m_pad, not row m
+    run_strip, blen = _strip_fn(cfg, W, route)
+    # the partial tail strip (m % R != 0) stops at the true last row;
+    # otherwise the bus decays through the sentinel rows and the emitted
+    # "last row" is row m_pad, not row m
     tail_h = m - (n_strips - 1) * R
-    run_tail = _strip_fn(cfg, W, backend, h_true=tail_h)[0] \
-        if tail_h < R else None
 
     # chunk length: cover every device's flush cadence a few times per
     # chunk so the sp buffer stays small but dispatches stay amortized
@@ -231,14 +210,9 @@ def _sharded_run(
                 run_it = active
 
             def do(_):
-                args = (a_strip, b_ext, bus_h, bus_f, init_h, init_e,
-                        corner_eff)
-                if run_tail is None:
-                    return run_strip(*args)
-                return jax.lax.cond(
-                    s_c == n_strips - 1,
-                    lambda _: run_tail(*args),
-                    lambda _: run_strip(*args), None)
+                h = jnp.where(s_c == n_strips - 1, tail_h, R)
+                return run_strip(a_strip, b_ext, bus_h, bus_f, init_h,
+                                 init_e, corner_eff, h)
 
             def skip(_):
                 if prune:
@@ -253,8 +227,7 @@ def _sharded_run(
                     bh_s, bf_s, lc = bus_h, bus_f, zero_col
                 return (
                     bh_s, bf_s, lc, neg_col,
-                    jnp.zeros((cfg.alpha, L), jnp.int32),
-                    jnp.zeros((cfg.alpha, L), jnp.int32),
+                    jnp.zeros(R, jnp.int32), jnp.zeros(R, jnp.int32),
                 )
 
             bh, bf, lc_h, lc_e, bv, bt = jax.lax.cond(run_it, do, skip,
@@ -343,7 +316,7 @@ def _sharded_run(
     if multi:
         # multi-host: each controller only addresses its own devices, so
         # global inputs are assembled per-shard and outputs allgathered
-        # over DCN (the reference's equivalent control plane is the
+        # over the network (the reference's equivalent control plane is the
         # AlignerPool shared-dir mailbox, common/AlignerPool.cpp:152-215)
         from jax.experimental import multihost_utils as mhu
         from jax.sharding import NamedSharding
@@ -539,7 +512,7 @@ def sharded_stage1(
     mesh: Mesh,
     cfg: wf.WavefrontConfig | None = None,
     params: ScoreParams = ScoreParams(),
-    backend: str = "scan",
+    route: str | None = None,
     prune: bool = False,
 ) -> ShardedResult:
     """Score-only SW forward pass, column-sharded over the mesh.
@@ -558,7 +531,7 @@ def sharded_stage1(
     -INF buses/columns (clearPrunedBlocks semantics), which stays exact
     for SW because fresh alignments restart from 0 anywhere.
     """
-    h = _sharded_run(seq0, seq1, mesh, cfg, params, backend, prune,
+    h = _sharded_run(seq0, seq1, mesh, cfg, params, route, prune,
                      flush_stride=0, capture_cols=False)
     return ShardedResult(
         best=int(h["best3"][:, 0].max()),
@@ -575,7 +548,7 @@ def sharded_stage1_full(
     mesh: Mesh,
     cfg: wf.WavefrontConfig | None = None,
     params: ScoreParams = ScoreParams(),
-    backend: str = "scan",
+    route: str | None = None,
     prune: bool = False,
     flush_stride: int = 1,
     state_dir: str | None = None,
@@ -589,21 +562,20 @@ def sharded_stage1_full(
     from masa_tpu.stages.core import SpecialRowStore
     from masa_tpu.parallel.split import PartResult
 
+    from masa_tpu.utils.devices import kernel_route
+
+    route = route or kernel_route()
     sink = None
     if state_dir is not None:
         # probe shapes cheaply to size the sink like _sharded_run will
-        cfg_probe = cfg
-        if cfg_probe is None:
-            cfg_probe = (wf.WavefrontConfig(alpha=8, rs=32, chunk=8192)
-                         if backend == "pallas" else wf.WavefrontConfig())
-        R_ = cfg_probe.rows
+        R_ = (cfg or _default_cfg(route)).rows
         D_ = mesh.devices.size
         n_strips_ = -(-len(seq0) // R_)
         stride_ = max(flush_stride, 1)
         sink = ShardedStateSink(state_dir, D_, -(-len(seq1) // D_), R_,
                                 n_strips_ * R_, n_strips_ // stride_)
         sink.set_stride(stride_)
-    h = _sharded_run(seq0, seq1, mesh, cfg, params, backend, prune,
+    h = _sharded_run(seq0, seq1, mesh, cfg, params, route, prune,
                      flush_stride=max(flush_stride, 1), capture_cols=True,
                      state_dir=state_dir, sink=sink)
     if sink is not None:
@@ -669,71 +641,76 @@ def sharded_align(
     mesh: Mesh,
     cfg: wf.WavefrontConfig | None = None,
     params: ScoreParams = ScoreParams(),
-    backend: str = "scan",
+    route: str | None = None,
     prune: bool = False,
     flush_stride: int = 1,
     traceback: str = "pipelined",
     max_cells_stage5: int = 1 << 18,
     state_dir: str | None = None,
     max_partition: int = 16,
+    log=None,
 ):
     """The full multi-chip alignment: sharded stage 1 over the mesh, then
     pipelined or speculative slab traceback (stage 2), densification
     (stage 3), the Myers-Miller stage-4 ladder down to `max_partition`
     (the reference's MPS=16 loop, stage4/sw_stage4.cpp:926-945 — engine
-    chosen by backend, see ops/myers_miller.stage4_reduce), exact
+    chosen by route, see ops/myers_miller.stage4_reduce), exact
     per-partition traceback with the score invariant (stage 5) and the
-    independent stage-6 re-check.
+    independent stage-6 re-check.  ``log`` receives one line per stage,
+    in the single-device runner's format.
 
     Returns (best_score, Alignment).  The reference equivalent is the
     whole multi-GPU claim: executeTracebackPipelined / Predicted,
     libmasa.cpp:659-757."""
-    import os
     import time
 
     from masa_tpu.parallel.split import (
         pipelined_traceback, speculative_traceback,
     )
     from masa_tpu.stages import pipeline, stage6
+    from masa_tpu.utils.devices import kernel_route
 
-    trace = os.environ.get("MASA_SHARDED_TRACE")
+    log = log or (lambda *a, **k: None)
     t0 = time.time()
-
-    def mark(name):
-        if trace:
-            print(f"    [sharded] {name}: {time.time() - t0:.2f}s",
-                  flush=True)
-
-    full = sharded_stage1_full(seq0, seq1, mesh, cfg, params, backend,
+    route = route or kernel_route()
+    full = sharded_stage1_full(seq0, seq1, mesh, cfg, params, route,
                                prune, flush_stride, state_dir=state_dir)
-    mark("stage1")
-    # the slab marchers reuse the stage-1 backend: "scan" means the CPU
-    # twin everywhere (tests), anything else lets the hop-size heuristic
-    # pick kernel vs numpy per hop
-    tb_backend = "numpy" if backend == "scan" else "auto"
+    dt = time.time() - t0
+    log(f"stage1: best={full.best} at ({full.best_i},{full.best_j})  "
+        f"{full.cells/1e6:.1f} Mcells in {dt:.2f}s "
+        f"({full.cells/dt/1e9:.2f} GCUPS, sharded over "
+        f"{mesh.devices.size} devices)")
+    t0 = time.time()
+    # the slab marchers follow the stage-1 route: "scan" means the CPU
+    # twin everywhere (tests), "cuda" lets the hop-size rule pick the
+    # kernel per hop
+    tb_backend = "numpy" if route == "scan" else "auto"
     if traceback == "speculative":
         cps, _reused = speculative_traceback(seq0, seq1, full.parts,
                                              params, backend=tb_backend)
     else:
         cps = pipelined_traceback(seq0, seq1, full.parts, params,
                                   backend=tb_backend)
-    mark(f"stage2 ({len(cps)} crosspoints)")
+    log(f"stage2: {len(cps)} crosspoints in {time.time()-t0:.2f}s")
+    t0 = time.time()
     pcfg = pipeline.PipelineConfig(
         params=params, max_cells_stage5=max_cells_stage5,
     )
     cps = pipeline.stage3_densify(seq0, seq1, pcfg, cps)
-    mark("stage3")
+    log(f"stage3: {len(cps)} crosspoints in {time.time()-t0:.2f}s")
     if max_partition:
         from masa_tpu.ops import myers_miller as mm
 
+        t0 = time.time()
         cps = mm.stage4_reduce(seq0, seq1, cps, params, max_partition,
                                stage5_max_cells=max_cells_stage5)
-    mark(f"stage4 ({len(cps)} crosspoints)")
+        log(f"stage4: {len(cps)} crosspoints in {time.time()-t0:.2f}s")
+    t0 = time.time()
     aln = pipeline.stage5_emit(seq0, seq1, pcfg, cps)
-    stage6.recheck(aln, seq0, seq1, params)
-    mark("stage5+6")
     if aln.raw_score != full.best:
         raise RuntimeError(
             f"sharded alignment score {aln.raw_score} != stage-1 best "
             f"{full.best}")
+    log(f"stage5: score={aln.raw_score} verified in {time.time()-t0:.2f}s")
+    stage6.recheck(aln, seq0, seq1, params)
     return full.best, aln

@@ -6,8 +6,8 @@ its slab, streaming its last column to the right neighbor through a cells
 URL (file:// for the serial "fake backend", socket:// for forked
 processes).  Best scores flow rightward through the AlignerPool.
 
-This is the host/DCN-level layer; intra-host multi-chip sharding lives in
-parallel/sharded.py (ppermute over ICI).
+This is the host/network-level layer; intra-host multi-device sharding
+lives in parallel/sharded.py (ppermute between devices).
 """
 
 from __future__ import annotations
@@ -218,7 +218,7 @@ def run_part_stage1(
     cfg: wf.WavefrontConfig | None = None,
     load_url: str | None = None,
     flush_url: str | None = None,
-    backend: str = "scan",
+    route: str | None = None,
     buffered: bool = True,
     special_every: int = 0,
 ) -> PartResult:
@@ -273,7 +273,7 @@ def run_part_stage1(
         InitType.WITH_ZEROES,
         InitType.CUSTOM if reader else InitType.WITH_ZEROES,
         first_col=None,
-        backend=backend,
+        route=route,
         first_col_reader=reader,
         lastcol_writer=writer,
         special_every=special_every,
@@ -304,7 +304,7 @@ def run_split_serial(
     work_dir: str,
     params: ScoreParams = ScoreParams(),
     cfg: wf.WavefrontConfig | None = None,
-    backend: str = "scan",
+    route: str | None = None,
 ) -> list[PartResult]:
     """All parts in sequence with file:// handoff — the reference's
     single-machine distributed test mode."""
@@ -316,7 +316,7 @@ def run_split_serial(
             seq0, seq1, k, points, params, cfg,
             load_url=urls[k - 1] if k > 0 else None,
             flush_url=urls[k] if k < nparts - 1 else None,
-            backend=backend,
+            route=route,
             buffered=False,
         ))
     return out
@@ -478,7 +478,7 @@ def run_split_threads(
     nparts: int,
     params: ScoreParams = ScoreParams(),
     cfg: wf.WavefrontConfig | None = None,
-    backend: str = "scan",
+    route: str | None = None,
     base_port: int = 7100,
 ) -> list[PartResult]:
     """All parts as concurrent THREADS in one JAX runtime, wired by real
@@ -498,7 +498,7 @@ def run_split_threads(
                 seq0, seq1, k, points, params, cfg,
                 load_url=urls[k - 1] if k > 0 else None,
                 flush_url=urls[k] if k < nparts - 1 else None,
-                backend=backend,
+                route=route,
             )
         except Exception as e:  # pragma: no cover
             errs[k] = e
@@ -522,7 +522,7 @@ def align_oversize(
     work_dir: str,
     params: ScoreParams = ScoreParams(),
     cfg: wf.WavefrontConfig | None = None,
-    backend: str = "scan",
+    route: str | None = None,
     max_cells_stage5: int = 1 << 18,
 ):
     """Full alignment when seq1 exceeds the aligner's per-run width
@@ -544,13 +544,13 @@ def align_oversize(
             seq0, seq1, k, points, params, kcfg,
             load_url=urls[k - 1] if k > 0 else None,
             flush_url=urls[k] if k < nparts - 1 else None,
-            backend=backend, buffered=False,
+            route=route, buffered=False,
             special_every=kcfg.rows,
         ))
     cps = pipelined_traceback(seq0, seq1, parts, params,
-                              backend=backend, cfg=cfg)
+                              backend="kernel", cfg=cfg)
     pcfg = pipeline.PipelineConfig(
-        params=params, kernel_cfg=cfg, backend=backend,
+        params=params, kernel_cfg=cfg, backend="kernel",
         max_cells_stage5=max_cells_stage5,
     )
     cps = pipeline.stage3_densify(seq0, seq1, pcfg, cps)

@@ -112,11 +112,11 @@ def select_endpoint(res, m: int, n: int, end: AlignmentStart,
 def auto_flush_interval(m: int, n: int, cfg: wf.WavefrontConfig,
                         limit_bytes: int = 1 << 30) -> int:
     """Flush-interval ladder seed (Job::calculateFlushIntervals,
-    common/Job.cpp:231-265): interval_0 = m*n*8/limit + 1, rounded up to
-    the strip height."""
-    iv = m * n * 8 // limit_bytes + 1
-    r = cfg.rows
-    return max(((iv + r - 1) // r) * r, r)
+    common/Job.cpp:231-265): interval_0 = m*n*8/limit + 1, snapped to
+    what the strip kernel can flush (strips.snap_special_interval)."""
+    from masa_tpu.ops.strips import snap_special_interval
+
+    return snap_special_interval(m * n * 8 // limit_bytes + 1, cfg)
 
 
 def stage1_pass(
@@ -131,10 +131,7 @@ def stage1_pass(
     row_init, col_init = _mode_inits(pcfg.alignment_start)
     rec = _recurrence(pcfg.alignment_start)
     end = _effective_end(pcfg)
-    kcfg = pcfg.kernel_cfg or core.stage1_config(
-        m, n, 1 << 30,
-        padded_tail=(rec == Recurrence.SMITH_WATERMAN
-                     and end == AlignmentStart.ANYWHERE))
+    kcfg = pcfg.kernel_cfg or core.stage1_config(m, n, 1 << 30)
     iv = pcfg.flush_interval or auto_flush_interval(m, n, kcfg)
     dev_cache = core.DevRowCache()
     res = core.forward_pass(
@@ -219,14 +216,9 @@ def _densify_segment(seq0, seq1, pcfg, c0, c1, max_cells, depth):
     sub0 = np.ascontiguousarray(seq0[c0.i : c1.i])
     sub1 = np.ascontiguousarray(seq1[c0.j : c1.j])
     row_init, col_init = core.init_types_for(c0.type)
-    # full-size strips: fewer, faster dispatches beat denser bands (the
-    # per-dispatch cost dominates mid-size partitions on a remote chip)
-    kcfg = pcfg.kernel_cfg or core.adaptive_config(h)
-    # ladder: >= 4 bands per level, aligned to strips for the kernel path
+    # ladder: ~8 bands per level (the kernel path snaps the cadence to
+    # its flush grain, strips.snap_special_interval)
     iv = max(h // 8, 1)
-    if h * w >= 16_000_000:
-        r = kcfg.rows
-        iv = max(((iv + r - 1) // r) * r, r)
     store = core.SpecialRowStore()
     core.forward_pass(
         sub0, sub1, pcfg.params, Recurrence.NEEDLEMAN_WUNSCH,

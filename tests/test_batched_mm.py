@@ -1,4 +1,4 @@
-"""Level-batched Myers-Miller (ops/batched_mm.py) — the TPU-first
+"""Level-batched Myers-Miller (ops/batched_mm.py) — the device-first
 re-design of stage 4 (stage4/sw_stage4.cpp runs it on CPU pthreads).
 
 The split rows are bucket-snapped (not h//2), so crosspoints can differ

@@ -5,7 +5,7 @@ architecture's differential check)."""
 import numpy as np
 import pytest
 
-from masa_tpu.core.aligner import CPUAligner, TPUAligner
+from masa_tpu.core.aligner import CPUAligner, KernelAligner
 from masa_tpu.core.manager import AlignerManager
 from masa_tpu.ops import oracle
 from masa_tpu.ops.wavefront import WavefrontConfig
@@ -43,28 +43,28 @@ class TestContracts:
     def test_extensions_agree_sw(self, dna, homolog):
         s0 = dna(600, seed=141)
         s1 = homolog(s0, seed=142)
-        m_tpu = drive(TPUAligner(KCFG, backend="scan"), s0, s1,
+        m_kern = drive(KernelAligner(KCFG, route="scan"), s0, s1,
                       interval=512)
         m_cpu = drive(CPUAligner(), s0, s1, interval=512)
-        assert m_tpu.best_scores.best == m_cpu.best_scores.best
-        assert m_tpu.last_row[0] == m_cpu.last_row[0]
-        assert np.array_equal(m_tpu.last_row[1], m_cpu.last_row[1])
-        for r in m_tpu.special_rows.rows():
-            th, tf = m_tpu.special_rows.get(r)
+        assert m_kern.best_scores.best == m_cpu.best_scores.best
+        assert m_kern.last_row[0] == m_cpu.last_row[0]
+        assert np.array_equal(m_kern.last_row[1], m_cpu.last_row[1])
+        for r in m_kern.special_rows.rows():
+            th, tf = m_kern.special_rows.get(r)
             ch, cf = m_cpu.special_rows.get(r)
             assert np.array_equal(th, ch)
 
     def test_nw_last_row(self, dna, homolog):
         s0 = dna(300, seed=143)
         s1 = homolog(s0, seed=144)
-        mgr = drive(TPUAligner(KCFG, backend="scan"), s0, s1,
+        mgr = drive(KernelAligner(KCFG, route="scan"), s0, s1,
                     Recurrence.NEEDLEMAN_WUNSCH)
         ref = oracle.dp_rows(s0, s1, P, Recurrence.NEEDLEMAN_WUNSCH,
                              InitType.WITH_GAPS, InitType.WITH_GAPS)
         assert mgr.last_row[1][-1] == ref.last_h[-1]
 
     def test_capabilities(self):
-        caps = TPUAligner(KCFG).get_capabilities()
+        caps = KernelAligner(KCFG).get_capabilities()
         assert caps.smith_waterman and caps.needleman_wunsch
         assert caps.block_pruning
         assert not CPUAligner().get_capabilities().block_pruning
@@ -75,7 +75,7 @@ class TestContracts:
         s0 = dna(600, seed=145)
         fwd = oracle.dp_rows(s0, s0, P, special_rows=(256,))
         fh, ff = fwd.specials[256]
-        aligner = TPUAligner(KCFG, backend="scan")
+        aligner = KernelAligner(KCFG, route="scan")
         mgr = AlignerManager(aligner, P)
         mgr.set_recurrence_type(Recurrence.SMITH_WATERMAN)
         mgr.set_special_row_interval(128)

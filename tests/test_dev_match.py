@@ -139,7 +139,6 @@ def test_windowed_cut_march_parity(dna, homolog, monkeypatch):
     monkeypatch.setattr(core, "_fetch_window_cut", count_fetch)
     monkeypatch.setattr(AlignerManager, "dispatch_last_row_device",
                         count_dev)
-    monkeypatch.setenv("MASA_TPU_FORCE_WINDOW_CUT", "1")
 
     got = core.reverse_march(
         s0, s1, P, ep, store,

@@ -74,50 +74,6 @@ class TestShardedStage1:
         assert np.array_equal(canon(res.last_f[:n]), canon(ref.last_f[1:]))
 
 
-class TestShardedPallasBranch:
-    @pytest.mark.slow
-    def test_pallas_interpret_parity(self, dna, homolog):
-        """_strip_fn's pallas branch (the backend real multi-chip runs
-        use) in interpret mode: full parity against the scan twin AND the
-        oracle on a 2-device mesh."""
-        s0 = dna(256, seed=171)
-        s1 = homolog(s0, seed=172)
-        mesh = make_mesh(2)
-        cfg = WavefrontConfig(
-            alpha=4, rs=1, chunk=512,
-            recurrence=Recurrence.SMITH_WATERMAN,
-            track_best=True, store_lastcol=True, interpret=True,
-        )
-        res = sharded_stage1(s0, s1, mesh, cfg, P, backend="pallas")
-        ref = oracle.dp_rows(s0, s1, P)
-        assert res.best == ref.best
-        n = len(s1)
-        assert np.array_equal(canon(res.last_h[:n]), canon(ref.last_h[1:]))
-
-    @pytest.mark.slow
-    def test_pallas_interpret_full_alignment(self, dna, homolog):
-        """sharded_align end-to-end on the pallas branch (interpret):
-        byte-identical to the monolithic pipeline."""
-        from masa_tpu.stages import pipeline
-
-        s0 = dna(256, seed=173)
-        s1 = homolog(s0, seed=174)
-        mesh = make_mesh(2)
-        cfg = WavefrontConfig(
-            alpha=4, rs=1, chunk=512,
-            recurrence=Recurrence.SMITH_WATERMAN, interpret=True,
-        )
-        best, aln = sharded_align(s0, s1, mesh, cfg, P, backend="pallas")
-        pcfg = pipeline.PipelineConfig(params=P)
-        res, ep = pipeline.stage1_pass(s0, s1, pcfg)
-        assert best == ep.score
-        cps = pipeline.stage2_march(s0, s1, pcfg, ep, res.specials)
-        cps = pipeline.stage3_densify(s0, s1, pcfg, cps)
-        mono = pipeline.stage5_emit(s0, s1, pcfg, cps)
-        assert aln.raw_score == mono.raw_score
-        assert aln.start == mono.start and aln.end == mono.end
-
-
 class TestShardedResume:
     def test_interrupted_chunk_resumes_identical(self, dna, homolog,
                                                  tmp_path, monkeypatch):

@@ -4,7 +4,7 @@ processes over localhost run `sharded_stage1` on a 2-device global mesh
 
 This is the modern analogue of the reference's single-machine fake
 multi-node backend (`--split` with file:// STEP handoff,
-libmasa.cpp:516-527): the full DCN control plane (`jax.distributed`
+libmasa.cpp:516-527): the full network control plane (`jax.distributed`
 init, global mesh, cross-process shard_map + ppermute, allgathered
 results) runs for real, with localhost standing in for the network.
 """

@@ -250,110 +250,6 @@ def test_nw_best_includes_border_cells(dna):
     assert b == 0 and (bi, bj) == (0, 0)  # the free origin wins here
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("start", [AlignmentStart.ANYWHERE,
-                                   AlignmentStart.SEQUENCE_1_AND_2])
-def test_hop_chain_matches_host_march(dna, homolog, start, monkeypatch):
-    """The device hop chain (wf.hop_step_device via
-    core._run_hop_chain) must reproduce the host march's crosspoints
-    BYTE-IDENTICALLY: same windows (W = max(4096, 2*hb)), same
-    first-hit match semantics, same fallbacks near j=0 where chaining
-    is ineligible.  Interpret-mode kernel on CPU."""
-    import numpy as np
-
-    from masa_tpu.stages import core, pipeline
-
-    s0 = dna(24576, seed=71)
-    s1 = homolog(s0, seed=72)
-    pcfg = pipeline.PipelineConfig(
-        alignment_start=start, backend="scan", flush_interval=512)
-
-    res, endpoint = pipeline.stage1_pass(s0, s1, pcfg)
-    row_init, col_init = pipeline._mode_inits(start)
-
-    def march(force_chain):
-        if force_chain:
-            monkeypatch.setenv("MASA_TPU_FORCE_HOP_CHAIN", "1")
-        else:
-            monkeypatch.delenv("MASA_TPU_FORCE_HOP_CHAIN",
-                               raising=False)
-        # independent stores per run (the march truncates them)
-        import copy
-
-        specials = core.SpecialRowStore()
-        specials._rows = dict(res.specials._rows)
-        dc = res.specials.dev_cache
-        cache = core.DevRowCache()
-        cache._rows = dict(dc._rows)
-        cache._borders = dict(dc._borders)
-        cache._bytes = dc._bytes
-        return core.reverse_march(
-            s0, s1, pcfg.params, endpoint, specials, row_init,
-            col_init, start, backend="scan", dev_cache=cache)
-
-    host = march(False)
-    chained = march(True)
-    assert [tuple(c) for c in chained] == [tuple(c) for c in host]
-
-
-@pytest.mark.slow
-def test_arb_hop_matches_host_march(dna, homolog, monkeypatch):
-    """The arbitrary-height endpoint hop (core._run_arb_hop): a global
-    march whose endpoint row is NOT rung-aligned (hb = 812 = one full
-    512-rung strip + a 256-row dyn-kernel tail + a 44-row residue) must
-    fire the device decomposition AND reproduce the host march's
-    crosspoints byte-identically."""
-    import numpy as np
-
-    from masa_tpu.stages import core, pipeline
-
-    s0 = dna(2 * 1024 + 812, seed=73)
-    # long unrelated prefix so the endpoint hop's 4096-wide window sits
-    # fully right of column 0 (the device-match precondition)
-    s1 = np.concatenate([dna(4200, seed=75), homolog(s0, seed=74)])
-    start = AlignmentStart.SEQUENCE_1_AND_2
-    pcfg = pipeline.PipelineConfig(
-        alignment_start=start, backend="scan", flush_interval=1024)
-    res, endpoint = pipeline.stage1_pass(s0, s1, pcfg)
-    assert endpoint.i % 1024 == 812  # the scenario's premise
-    row_init, col_init = pipeline._mode_inits(start)
-
-    fired = {"n": 0, "hit": 0}
-    orig = core._run_arb_hop
-
-    def spy(*a, **k):
-        fired["n"] += 1
-        got = orig(*a, **k)
-        if got is not None:
-            fired["hit"] += 1
-        return got
-
-    monkeypatch.setattr(core, "_run_arb_hop", spy)
-
-    def march(force_chain):
-        if force_chain:
-            monkeypatch.setenv("MASA_TPU_FORCE_HOP_CHAIN", "1")
-        else:
-            monkeypatch.delenv("MASA_TPU_FORCE_HOP_CHAIN",
-                               raising=False)
-        specials = core.SpecialRowStore()
-        specials._rows = dict(res.specials._rows)
-        dc = res.specials.dev_cache
-        cache = core.DevRowCache()
-        cache._rows = dict(dc._rows)
-        cache._borders = dict(dc._borders)
-        cache._bytes = dc._bytes
-        return core.reverse_march(
-            s0, s1, pcfg.params, endpoint, specials, row_init,
-            col_init, start, backend="scan", dev_cache=cache)
-
-    host = march(False)
-    assert fired["n"] == 0  # host path never consults the device hop
-    chained = march(True)
-    assert fired["hit"] >= 1, fired  # the endpoint hop ran on device
-    assert [tuple(c) for c in chained] == [tuple(c) for c in host]
-
-
 class _PoisonStore:
     """SpecialRowStore wrapper that makes ONE row unmatchable (all-NEG):
     every width attempt at it misses, driving reverse_march's full-width
@@ -415,3 +311,34 @@ def test_reverse_march_widens_over_rows(dna, homolog):
     assert not any(c.i == bad for c in poisoned)
     assert ([tuple(c) for c in poisoned]
             == [tuple(c) for c in clean if c.i != bad])
+
+
+def test_densify_progresses_with_single_strip_partitions(monkeypatch):
+    """With strips as tall as a whole partition (the CUDA route's
+    strips), the padded tail strip runs the fused path and flushes
+    interior special rows, so stage 3 densifies every partition down to
+    max_cells (a non-densified partition would reach stage 5's dense DP
+    whole)."""
+    from masa_tpu.ops.wavefront import WavefrontConfig
+    from masa_tpu.stages import core, pipeline
+    from masa_tpu.types import ScoreParams
+
+    def one_strip(rows):
+        r = 1 << (max(rows, 512) - 1).bit_length()
+        return WavefrontConfig(alpha=4, rs=min(r, 4096) // 512, chunk=512)
+
+    monkeypatch.setattr(core, "adaptive_config", one_strip)
+    rng = np.random.default_rng(3)
+    s0 = rng.choice(np.frombuffer(b"ACGT", np.uint8), 1500)
+    s1 = s0.copy()
+    idx = rng.random(len(s1)) < 0.08
+    s1[idx] = rng.choice(np.frombuffer(b"ACGT", np.uint8), int(idx.sum()))
+    pc = pipeline.PipelineConfig(params=ScoreParams(), max_partition=0,
+                                 max_cells_stage5=1 << 15)
+    res, ep = pipeline.stage1_pass(s0, s1, pc)
+    cps = pipeline.stage2_march(s0, s1, pc, ep, res.specials)
+    cps3 = pipeline.stage3_densify(s0, s1, pc, cps)
+    assert max((c1.i - c0.i) * (c1.j - c0.j)
+               for c0, c1 in zip(cps3, cps3[1:])) <= 1 << 15
+    aln = pipeline.stage5_emit(s0, s1, pc, cps3)
+    assert aln.raw_score == ep.score

@@ -45,7 +45,7 @@ class TestPrunedAlignment:
         s0 = dna(4096, seed=111)
         res_p = strips.run_partition(
             CFG, s0, s0, P, InitType.WITH_ZEROES, InitType.WITH_ZEROES,
-            backend="scan", prune=True,
+            route="scan", prune=True,
         )
         assert res_p.best == 4096
         assert (res_p.best_i, res_p.best_j) == (4096, 4096)
@@ -56,7 +56,7 @@ class TestPrunedAlignment:
         s1 = homolog(s0, seed=113)
         res_p = strips.run_partition(
             CFG, s0, s1, P, InitType.WITH_ZEROES, InitType.WITH_ZEROES,
-            backend="scan", prune=True,
+            route="scan", prune=True,
         )
         ref = oracle.dp_rows(s0, s1, P)
         assert res_p.best == ref.best
@@ -67,7 +67,7 @@ class TestPrunedAlignment:
         s1 = dna(700, seed=115)
         res_p = strips.run_partition(
             CFG, s0, s1, P, InitType.WITH_ZEROES, InitType.WITH_ZEROES,
-            backend="scan", prune=True,
+            route="scan", prune=True,
         )
         ref = oracle.dp_rows(s0, s1, P)
         assert res_p.best == ref.best

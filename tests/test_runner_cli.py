@@ -172,7 +172,7 @@ class TestRunner:
     def test_stage4_non_default_strategy(self, dna, homolog, tmp_path):
         """Non-OPTIMIZED strategies must still get densified partitions
         from stage 3 (stage3's pass-through only applies when stage 4
-        takes the TPU-batched/native OPTIMIZED path)."""
+        takes the device-batched/native OPTIMIZED path)."""
         s0 = dna(300, seed=105)
         s1 = homolog(s0, seed=106)
         cfg = JobConfig(work_dir=str(tmp_path / "s4s"),
@@ -290,7 +290,7 @@ def test_cli_self_test():
 
 
 class TestLazySpecialRows:
-    """Stage 1's lazy special rows (no tunnel pull for RAM-destined rows;
+    """Stage 1's lazy special rows (no host pull for RAM-destined rows;
     disk checkpoints in the device's packed form) must be byte-equivalent
     to the eager path and crash-resumable."""
 

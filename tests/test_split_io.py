@@ -138,7 +138,7 @@ class TestPipelinedTraceback:
                 s0, s1, k, points, P, CFG,
                 load_url=urls[k - 1] if k > 0 else None,
                 flush_url=urls[k] if k < nparts - 1 else None,
-                backend="scan", buffered=False, special_every=512,
+                route="scan", buffered=False, special_every=512,
             ))
         cps = pipelined_traceback(s0, s1, parts, P)
         ref = oracle.dp_rows(s0, s1, P)
@@ -174,7 +174,7 @@ class TestSpeculativeTraceback:
                 s0, s1, k, points, P, CFG,
                 load_url=urls[k - 1] if k > 0 else None,
                 flush_url=urls[k] if k < nparts - 1 else None,
-                backend="scan", buffered=False, special_every=512,
+                route="scan", buffered=False, special_every=512,
             ))
         cps, reused = speculative_traceback(s0, s1, parts, P)
         assert reused > 0, "speculation should be confirmed on identity"
@@ -204,7 +204,7 @@ class TestSpeculativeTraceback:
                 s0, s1, k, points, P, CFG,
                 load_url=urls[k - 1] if k > 0 else None,
                 flush_url=urls[k] if k < nparts - 1 else None,
-                backend="scan", buffered=False, special_every=512,
+                route="scan", buffered=False, special_every=512,
             ))
         cps, reused = speculative_traceback(s0, s1, parts, P)
         ref = oracle.dp_rows(s0, s1, P)

@@ -227,7 +227,7 @@ class TestLazyRows:
                                  ram_limit=1 << 30, disk_limit=0)
         lazy, h, f = _lazy_row(512)
         p.put_lazy(3, lazy)
-        assert not lazy.pull.started          # no tunnel crossing
+        assert not lazy.pull.started          # no device-to-host copy
         assert p.rows() == [3]
         rh, rf = p.get(3)
         assert lazy.pull.started

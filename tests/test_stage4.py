@@ -104,43 +104,6 @@ def test_stage6_histogram_format():
     assert set(stage6.FORMATS) == {"text", "svg", "histogram"}
 
 
-def test_mosaic_tail_chains_beyond_sweep_rung(monkeypatch):
-    """Sub-granularity tails taller than one row-sweep rung (_SWEEP_R =
-    512 rows) must CHAIN through the engine: a single call silently
-    truncates the DP at 512 rows (round-3 review finding).  Forcing
-    gran = alpha*128 = 1024 > h = 700 makes the whole height a tail, so
-    the path runs engine-only on CPU; the chained result must equal the
-    _halves_sweep ground truth."""
-    import dataclasses
-
-    from masa_tpu.ops import batched_mm as bmm
-    from masa_tpu.ops.wavefront import Recurrence
-
-    rng = np.random.default_rng(7)
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    s0 = rng.choice(bases, 900).astype(np.uint8)
-    s1 = rng.choice(bases, 800).astype(np.uint8)
-
-    def fake_cfg(h, njq, params, B=1, heights=None):
-        return dataclasses.replace(
-            WavefrontConfig(alpha=8, rs=32, chunk=8192),
-            recurrence=Recurrence.NEEDLEMAN_WUNSCH,
-            track_best=False, store_lastcol=False,
-            match=params.match, mismatch=params.mismatch,
-            gap_open=params.gap_open, gap_ext=params.gap_ext)
-
-    monkeypatch.setattr(bmm, "_pallas_mm_cfg", fake_cfg)
-    njq = 1024
-    # pad1 covers the tail rung's padded slice (padded_len(_TAIL_CFG, njq))
-    dev = bmm._DevSeqs(s0, s1, pad0=4096, pad1=njq + 16384)
-    halves = [bmm._Half(0, 700, 0, 750, 1, 1),
-              bmm._Half(100, 690, 30, 700, 0, 2)]
-    mh, mf = bmm._halves_mosaic(dev, halves, False, P, njq)
-    sh, sf = bmm._halves_sweep(dev, halves, False, P, njq)
-    np.testing.assert_array_equal(np.asarray(mh), np.asarray(sh)[:, :njq])
-    np.testing.assert_array_equal(np.asarray(mf), np.asarray(sf)[:, :njq])
-
-
 def test_halves_strips_engine_parity():
     """The per-half strip engine (tall stage-4 halves at the strip
     kernel's rate) must return bus-exact results vs the row-sweep
@@ -172,76 +135,60 @@ def test_halves_strips_engine_parity():
 
 
 def test_partition_config_rung_cost_model(monkeypatch):
-    """The stage-2 hop rung chooser: full strips run fused Mosaic, the
-    rows % R tail runs the slow scan twin — so arbitrary hop heights
-    must pick the rung minimizing kernel+dispatch+tail cost, not just
-    the tallest rung (a 32K-row scan tail costs seconds)."""
-    import jax
-
+    """The per-partition strip follows the platform decision: on the
+    CUDA route the tallest power of two <= the partition's rows (at
+    least one full strip, whose interior rows can flush; the rest runs
+    at its true height, call data to the kernel), capped at the
+    full-height strip; the scan route keeps its one CPU strip.  The
+    width never changes the choice."""
     from masa_tpu.stages import core
+    from masa_tpu.utils import devices
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    # heights aligned to a rung take the cheapest covering rung; one
-    # full big-rung strip beats several smaller strips' dispatches
-    assert core.partition_config(262144, 1 << 20).rows == 131072
+    monkeypatch.setattr(devices, "kernel_route", lambda: "cuda")
+    assert core.partition_config(700, 1 << 20).rows == 512
+    assert core.partition_config(65536 + 300, 1 << 20).rows == 65536
     assert core.partition_config(131072, 1 << 20).rows == 131072
-    assert core.partition_config(65536, 1 << 20).rows == 32768
+    assert core.partition_config(1 << 22, 1 << 20).rows == 1 << 19
+    assert core.partition_config(1, 7).rows == 512
+    for rows in (1, 700, 131072, 1 << 22):
+        cfg = core.partition_config(rows, 1 << 20)
+        assert cfg == core.partition_config(rows, 64)
+        assert cfg.alpha == 4 and cfg.rows % (cfg.alpha * 128) == 0
+    assert core.default_config().rows == 1 << 19
 
-    # a tiny remainder over a full strip stays on the big rung (the
-    # 300-row scan tail costs ~0.1 s, less than re-stripping); a rung
-    # whose use would leave a BIG scan tail is priced out
-    assert core.partition_config(131072 + 300, 1 << 20).rows == 131072
-    cfg = core.partition_config(65536 + 300, 1 << 20)
-    assert cfg.rows == 32768
-    tail = (65536 + 300) % cfg.rows
-    assert tail * (1 << 20) / core._SCAN_GCUPS < 2.0  # seconds, small
-
-    # tiny hops: the smallest rung
-    assert core.partition_config(700, 1 << 20) is core._TPU_LADDER[0]
-
-    # off-TPU the chooser defers to the CPU ladder
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert core.partition_config(131072, 1 << 20) is core._CPU_LADDER[0]
+    monkeypatch.setattr(devices, "kernel_route", lambda: "scan")
+    assert core.partition_config(131072, 1 << 20) is core._SCAN_CFG
+    assert core.default_config() is core._SCAN_CFG
 
 
 def test_stage1_plan_traceback_aware(monkeypatch):
-    """Stage-1 planning must minimize the WHOLE pipeline, not the forward
-    GCUPS.  With the kernel's mid-strip flush the spacing decouples from
-    the rung: 1M/5M-class runs take the TALLEST rung (R=131072, full
-    kernel rate) with 32768-row spacing (stage-2 hop chains engage on
-    the 32768 rung; stage 4 inherits 32768-tall partitions) — where the
-    round-3 boundary-only kernel had to drop the whole stage 1 to the
-    R=32768 rung (~90 GCUPS measured) to buy the same spacing."""
-    import jax
-
+    """Stage-1 planning: the special-row spacing is the SRA budget's
+    interval (m*n*8/limit + 1, the reference's rule) snapped to what the
+    strip kernel can flush — a power-of-two multiple of alpha*128 inside
+    the strip, or whole strips."""
+    from masa_tpu.ops.strips import snap_special_interval
     from masa_tpu.stages import core
+    from masa_tpu.utils import devices
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
+    monkeypatch.setattr(devices, "kernel_route", lambda: "cuda")
     m = n = 1 << 20
     cfg, spacing = core.stage1_plan(m, n, 17 << 30)
-    assert cfg.rows == 131072
-    assert spacing == 32768
-    # the spacing must be kernel-flushable at this rung
-    from masa_tpu.ops.strips import snap_special_interval
+    assert cfg.rows == 1 << 19
+    assert spacing == 512           # iv = 483, snapped to the 512 grain
+    assert snap_special_interval(spacing, cfg) == spacing
 
-    assert snap_special_interval(spacing, cfg, "pallas") == spacing
-
-    # 5M-class: same trade, same winner
     cfg, spacing = core.stage1_plan(5_000_000, 5_000_000, 17 << 30)
-    assert (cfg.rows, spacing) == (131072, 32768)
+    iv = 5_000_000 * 5_000_000 * 8 // (17 << 30) + 1
+    assert spacing >= iv and spacing == 16384
+    assert cfg.rows % spacing == 0
 
-    # when the SRA budget itself forces sparse rows (23M-class), the
-    # spacing is budget-bound whatever the rung; the planner must still
-    # return a ladder rung and respect the budget floor
-    cfg, spacing = core.stage1_plan(23_000_000, 25_000_000, 17 << 30)
-    iv = 23_000_000 * 25_000_000 * 8 // (17 << 30) + 1
-    assert cfg in core._TPU_LADDER
-    assert spacing >= iv
-    assert spacing % (cfg.alpha * 128) == 0
+    # the budget forces sparse rows: whole strips
+    cfg, spacing = core.stage1_plan(23_000_000, 25_000_000, 1 << 30)
+    iv = 23_000_000 * 25_000_000 * 8 // (1 << 30) + 1
+    assert spacing >= iv and spacing % cfg.rows == 0
 
-    # off-TPU: the CPU ladder via adaptive_config, no spacing override
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    # the scan route: the CPU strip, spacing in whole strips
+    monkeypatch.setattr(devices, "kernel_route", lambda: "scan")
     cfg, spacing = core.stage1_plan(m, n)
-    assert cfg is core._CPU_LADDER[0] and spacing is None
+    assert cfg is core._SCAN_CFG
+    assert spacing % cfg.rows == 0 and spacing >= 483

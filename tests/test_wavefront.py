@@ -1,5 +1,7 @@
-"""Wavefront kernel parity: lax.scan harness vs NumPy oracle, and Pallas
-(interpret mode) vs the scan harness."""
+"""Wavefront strip parity: the lax.scan twin and the strip dispatcher vs
+the NumPy oracle, and run_partition's fused/two-phase/sub-strip paths on
+the scan route.  (The CUDA kernel itself is checked against the scan twin
+on the card: chip_smoke.py phase 2 and the gpu-marked tests.)"""
 
 import numpy as np
 import pytest
@@ -18,7 +20,7 @@ def canon(a):
     return np.where(a <= -INF // 2, -INF, a)
 
 
-def check_partition(s0, s1, cfg, rec, init_r, init_c, backend="scan",
+def check_partition(s0, s1, cfg, rec, init_r, init_c, route="scan",
                     first_row=None, first_col=None, special_every=0):
     import dataclasses
 
@@ -26,7 +28,7 @@ def check_partition(s0, s1, cfg, rec, init_r, init_c, backend="scan",
         dataclasses.replace(cfg, recurrence=rec),
         s0, s1, P, init_r, init_c,
         first_row=first_row, first_col=first_col,
-        backend=backend, special_every=special_every,
+        route=route, special_every=special_every,
     )
     ref = oracle.dp_rows(
         s0, s1, P, rec, init_r, init_c,
@@ -83,10 +85,9 @@ class TestScanVsOracle:
                         InitType.WITH_ZEROES, InitType.WITH_ZEROES)
 
     def test_mid_rung_shape_parity(self, dna, homolog):
-        """The production TPU mid rung's (alpha=8, rs=32) lane packing
-        through the scan twin: stage1_config now routes 1M/5M-class
-        stage-1 runs to this rung, so its packing/shift math gets a
-        direct oracle check (the Mosaic body is the same _make_step)."""
+        """A wide lane layout (alpha=8, rs=32: sublane carries across 32
+        rows of 128 lanes) through the scan twin: its packing/shift math
+        gets a direct oracle check."""
         import dataclasses
 
         s0 = dna(800, seed=61)
@@ -127,73 +128,130 @@ class TestScanVsOracle:
         assert np.array_equal(canon(res.last_h), canon(full.last_h))
 
 
-class TestPallasInterpret:
-    @pytest.mark.slow
-    def test_sw_parity(self, dna, homolog):
-        s0 = dna(600, seed=41)
-        s1 = homolog(s0, seed=42)
+class TestStripDispatcher:
+    """wf.strip on the scan route: row-major operands, per-row best
+    captures, true-height masking, max-only tracking."""
+
+    def _run(self, dna, homolog, cfg, m, nj, h_true, seed):
+        import jax.numpy as jnp
+
+        from masa_tpu.ops import wavefront as wf
+
+        s0 = dna(m, seed=seed)
+        s1 = homolog(s0, seed=seed + 1)[:nj]
+        nj = len(s1)
+        R = cfg.rows
+        a = wf.rows_vec(cfg, s0[:h_true], wf.A_SENTINEL)
+        b = np.full(nj + 64, wf.B_SENTINEL, np.int32)
+        b[:nj] = s1
+        bus_h = np.zeros(nj + 64, np.int32)
+        bus_f = np.full(nj + 64, -INF, np.int32)
+        out = wf.strip(cfg, "scan", jnp.asarray(a), jnp.asarray(b),
+                       jnp.asarray(bus_h), jnp.asarray(bus_f),
+                       jnp.zeros(R, jnp.int32),
+                       jnp.full(R, -INF, jnp.int32), jnp.int32(0),
+                       nj=nj, h_true=h_true)
+        ref = oracle.dp_rows(s0[:h_true], s1, P, row_bests=True)
+        return out, ref, nj
+
+    @pytest.mark.parametrize("h_true", [512, 300, 1])
+    def test_per_row_best_and_height(self, dna, homolog, h_true):
         cfg = WavefrontConfig(alpha=4, rs=1, chunk=256, track_best=True,
-                              store_lastcol=True, interpret=True)
-        check_partition(s0, s1, cfg, Recurrence.SMITH_WATERMAN,
-                        InitType.WITH_ZEROES, InitType.WITH_ZEROES,
-                        backend="pallas")
+                              store_lastcol=True)
+        out, ref, nj = self._run(dna, homolog, cfg, 600, 280, h_true, 91)
+        bv = np.asarray(out["best_v"])
+        bj = np.asarray(out["best_j"])
+        assert bv.shape == bj.shape == (cfg.rows,)
+        # rows past the true height hold no best
+        assert (bv[h_true:] == -INF).all() and (bj[h_true:] == 0).all()
+        np.testing.assert_array_equal(bv[:h_true], ref.row_best_val)
+        np.testing.assert_array_equal(bj[:h_true] + 1, ref.row_best_j)
+        bh = np.asarray(out["bus_h"])
+        np.testing.assert_array_equal(bh[:nj], ref.last_h[1:])
+        assert bh.shape == (nj + 64,) and (bh[nj:] == -INF).all()
+        lc = np.asarray(out["lastcol_h"])
+        np.testing.assert_array_equal(lc[:h_true], ref.col_h[1:])
+        assert lc.shape == (cfg.rows,) and (lc[h_true:] == -INF).all()
 
-    @pytest.mark.slow
-    def test_max_only_tracking_parity(self, dna, homolog):
-        """track_pos=False (two-phase phase 1): per-slot maxima must
-        reduce to the oracle best score; the kernel's state packing
-        without the best_t slots must stay consistent."""
-        import numpy as np
+    def test_width_and_height_are_call_data(self, dna, homolog):
+        """One compiled strip serves every width and height that fits its
+        buffers; each result equals the oracle, NEG past the width."""
+        import jax.numpy as jnp
 
-        from masa_tpu.ops import oracle, wavefront as wf
-        from masa_tpu.types import ScoreParams
+        from masa_tpu.ops import wavefront as wf
 
-        P = ScoreParams()
-        s0 = dna(600, seed=45)
-        s1 = homolog(s0, seed=46)
         cfg = WavefrontConfig(alpha=4, rs=1, chunk=256, track_best=True,
-                              track_pos=False, store_lastcol=False,
-                              interpret=True)
-        from masa_tpu.models.scoring import border_cells
+                              store_lastcol=True)
+        R, W = cfg.rows, 384
+        s0 = dna(R, seed=97)
+        s1 = homolog(s0, seed=98)[:W]
+        wf.strip.clear_cache()
+        for nj, h in ((W, R), (200, 300), (1, 1), (383, 511)):
+            b = np.full(W, wf.B_SENTINEL, np.int32)
+            b[:nj] = s1[:nj]
+            out = wf.strip(cfg, "scan", jnp.asarray(wf.rows_vec(
+                cfg, s0[:h], wf.A_SENTINEL)), jnp.asarray(b),
+                jnp.zeros(W, jnp.int32), jnp.full(W, -INF, jnp.int32),
+                jnp.zeros(R, jnp.int32), jnp.full(R, -INF, jnp.int32),
+                jnp.int32(0), nj=np.int32(nj), h_true=np.int32(h))
+            ref = oracle.dp_rows(s0[:h], s1[:nj], P, row_bests=True)
+            bh = np.asarray(out["bus_h"])
+            np.testing.assert_array_equal(bh[:nj], ref.last_h[1:])
+            assert (bh[nj:] == -INF).all()
+            np.testing.assert_array_equal(
+                np.asarray(out["lastcol_h"])[:h], ref.col_h[1:])
+            np.testing.assert_array_equal(
+                np.asarray(out["best_v"])[:h], ref.row_best_val)
+        assert wf.strip._cache_size() == 1
 
-        n = len(s1)
-        plen = wf.padded_len(cfg, n)
-        b = np.full(plen, wf.B_SENTINEL, np.int32)
-        b[:n] = s1
-        bus_h = np.zeros(plen, np.int32)
-        bus_f = np.full(plen, -wf.INF, np.int32)
-        rows = min(cfg.rows, len(s0))
-        a = wf.pack_strip_rows(cfg, s0[:rows].astype(np.int32))
-        ih, ie = wf.pack_border_cols(
-            cfg, np.zeros(rows, np.int32),
-            np.full(rows, -wf.INF, np.int32))
-        out = wf.strip_pallas(cfg, a, b, bus_h, bus_f, ih, ie, 0,
-                              nj=n, h_true=rows)
-        ref = oracle.dp_rows(s0[:rows], s1, P)
+    def test_max_only_tracking(self, dna, homolog):
+        """track_pos=False (two-phase phase 1): per-row maxima only."""
+        cfg = WavefrontConfig(alpha=4, rs=1, chunk=256, track_best=True,
+                              track_pos=False)
+        out, ref, _ = self._run(dna, homolog, cfg, 600, 250, 512, 93)
+        assert "best_j" not in out
         assert int(np.asarray(out["best_v"]).max()) == ref.best
-        assert "best_t" not in out
 
-    @pytest.mark.slow
-    def test_nw_parity(self, dna, homolog):
-        s0 = dna(530, seed=43)
-        s1 = homolog(s0, seed=44)
-        cfg = WavefrontConfig(alpha=4, rs=1, chunk=256, track_best=False,
-                              store_lastcol=True, interpret=True,
-                              recurrence=Recurrence.NEEDLEMAN_WUNSCH)
-        check_partition(s0, s1, cfg, Recurrence.NEEDLEMAN_WUNSCH,
-                        InitType.WITH_GAPS, InitType.WITH_GAPS,
-                        backend="pallas")
+    def test_unknown_route_raises(self):
+        import jax.numpy as jnp
+
+        from masa_tpu.ops import wavefront as wf
+
+        cfg = WavefrontConfig(alpha=4, rs=1, chunk=256)
+        z = jnp.zeros(cfg.rows, jnp.int32)
+        with pytest.raises(ValueError, match="route"):
+            wf.strip(cfg, "mosaic", z, z, z, z, z, z, jnp.int32(0), nj=8,
+                     h_true=8)
+
+    def test_resolve_and_merge_best_agree(self):
+        import jax.numpy as jnp
+
+        from masa_tpu.ops import wavefront as wf
+
+        bv = np.array([3, 7, 7, 1], np.int32)
+        bj = np.array([5, 9, 2, 0], np.int32)
+        assert wf.resolve_best(bv, bj) == (7, 1, 9)
+        carry = (jnp.int32(6), jnp.int32(0), jnp.int32(0))
+        s, i, j = (int(x) for x in wf.merge_best_device(
+            carry, jnp.asarray(bv), jnp.asarray(bj), 100, 10))
+        assert (s, i, j) == (7, 102, 20)
+        # ties with the running best keep the earlier strip
+        carry = (jnp.int32(7), jnp.int32(5), jnp.int32(5))
+        assert tuple(int(x) for x in wf.merge_best_device(
+            carry, jnp.asarray(bv), jnp.asarray(bj), 100, 10)) == (7, 5, 5)
 
 
 def test_quantize_cols_buckets():
-    """Column quantization: lane-aligned, monotone, <= 12.5% overhead,
-    few buckets per octave (bounds the kernel compile count)."""
-    from masa_tpu.ops.strips import quantize_cols
+    """Bus buffer lengths (wf.padded_len): whole chunks, monotone, <=
+    12.5% over the width beyond one chunk, few sizes per octave (bounds
+    the number of compiled programs; the width itself is call data)."""
+    from masa_tpu.ops import wavefront as wf
 
+    cfg = WavefrontConfig(chunk=128)
     seen = set()
     prev = 0
     for nj in range(1, 300000, 997):
-        q = quantize_cols(nj)
+        q = wf.padded_len(cfg, nj)
         assert q >= nj and q % 128 == 0
         assert q <= max(nj * 1.125 + 128, 128)
         assert q >= prev
@@ -226,7 +284,7 @@ class TestBorderDiagonalSeed:
                 alpha=4, rs=1, chunk=512, recurrence=rec,
                 track_best=rec == Recurrence.SMITH_WATERMAN)
             ref = oracle.dp_rows(s0, s1, P, rec)
-            got = strips.run_partition(cfg, s0, s1, P, backend="scan")
+            got = strips.run_partition(cfg, s0, s1, P, route="scan")
             np.testing.assert_array_equal(got.last_h, ref.last_h)
             if rec == Recurrence.SMITH_WATERMAN:
                 assert got.best == ref.best == 1
@@ -256,15 +314,17 @@ class TestBorderDiagonalSeed:
                                          InitType(ci))
                     got = strips.run_partition(
                         cfg, s0, s1, P, InitType(ri), InitType(ci),
-                        backend="scan")
+                        route="scan")
                     np.testing.assert_array_equal(got.last_h, ref.last_h)
 
 
 def test_strip_scan_dyn_matches_static():
-    """The dynamic-shape kernel (traced nj/h_true) must agree with the
-    static scan twin for arbitrary widths/heights under every init."""
+    """Width and height are call data: one compiled scan twin serves
+    arbitrary widths/heights under every init, each equal to the
+    oracle."""
     import numpy as np
 
+    from masa_tpu.models.scoring import border_cells
     from masa_tpu.ops import oracle
     from masa_tpu.ops import wavefront as wf
     from masa_tpu.types import InitType, Recurrence, ScoreParams
@@ -274,8 +334,8 @@ def test_strip_scan_dyn_matches_static():
     cfg = wf.WavefrontConfig(alpha=4, rs=1, chunk=512,
                              recurrence=Recurrence.NEEDLEMAN_WUNSCH,
                              track_best=False, store_lastcol=False)
-    from masa_tpu.models.scoring import border_cells
-
+    W = 512
+    wf.strip_scan.clear_cache()
     for seed, (ri, ci) in enumerate([(1, 1), (2, 1), (1, 2)]):
         rng = np.random.default_rng(seed)
         m = int(rng.integers(2, cfg.rows))
@@ -284,147 +344,22 @@ def test_strip_scan_dyn_matches_static():
         s1 = rng.choice(bases, n).astype(np.uint8)
         ref = oracle.dp_rows(s0, s1, P, Recurrence.NEEDLEMAN_WUNSCH,
                              InitType(ri), InitType(ci))
-        T = cfg.steps(512)
-        b = np.full(T, wf.B_SENTINEL, np.int32)
+        b = np.full(W, wf.B_SENTINEL, np.int32)
         b[:n] = s1
         rh, _ = border_cells(n + 1, InitType(ri), P)
-        bus_h = np.full(T, -wf.INF, np.int32)
-        bus_f = np.full(T, -wf.INF, np.int32)
+        bus_h = np.full(W, -wf.INF, np.int32)
+        bus_f = np.full(W, -wf.INF, np.int32)
         bus_h[:n] = rh[1:]
         a = wf.pack_strip_rows(cfg, s0.astype(np.int32))
         ch, ce = border_cells(m, InitType(ci), P, start=1)
         ih, ie = wf.pack_border_cols(cfg, ch, ce)
-        ph, pf = wf.strip_scan_dyn(cfg, a, b, bus_h, bus_f, ih, ie,
-                                   int(rh[0]), 0, m, T=T)
-        lane = (m - 1) // cfg.alpha
-        got_h = np.asarray(ph)[lane : lane + n]
-        got_f = np.asarray(pf)[lane : lane + n]
-        np.testing.assert_array_equal(got_h, ref.last_h[1:])
-        np.testing.assert_array_equal(got_f, ref.last_f[1:])
-
-
-@pytest.mark.slow
-def test_batched_strip_pallas_interpret_parity():
-    """The batched (B, chunks)-grid Mosaic kernel: per-element state
-    resets at chunk 0; mixed widths pad with sentinels; every element's
-    flush row must equal the oracle's last row."""
-    import numpy as np
-
-    from masa_tpu.models.scoring import border_cells
-    from masa_tpu.ops import oracle
-    from masa_tpu.ops import wavefront as wf
-    from masa_tpu.types import InitType, Recurrence, ScoreParams
-
-    P = ScoreParams()
-    cfg = WavefrontConfig(alpha=4, rs=1, chunk=256,
-                          recurrence=Recurrence.NEEDLEMAN_WUNSCH,
-                          track_best=False, store_lastcol=False,
-                          interpret=True)
-    rng = np.random.default_rng(0)
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    B, h, nj = 3, 300, 256
-    plen = wf.padded_len(cfg, nj)
-    a_all = np.empty((B, cfg.alpha, cfg.rs, 128), np.int32)
-    ih_all = np.empty_like(a_all)
-    ie_all = np.empty_like(a_all)
-    b_all = np.full((B, plen), wf.B_SENTINEL, np.int32)
-    bh_all = np.full((B, plen), -wf.INF, np.int32)
-    bf_all = np.full((B, plen), -wf.INF, np.int32)
-    corners = np.zeros(B, np.int32)
-    refs = []
-    for k in range(B):
-        s0 = rng.choice(bases, h).astype(np.uint8)
-        w = [200, 256, 130][k]
-        s1 = rng.choice(bases, w).astype(np.uint8)
-        rh, _ = border_cells(w + 1, InitType.WITH_GAPS, P)
-        a_all[k] = wf.pack_strip_rows(cfg, s0.astype(np.int32))
-        b_all[k, :w] = s1
-        bh_all[k, :w] = rh[1:]
-        ch, ce = border_cells(h, InitType.WITH_GAPS, P, start=1)
-        ihp, iep = wf.pack_border_cols(cfg, ch, ce)
-        ih_all[k], ie_all[k] = ihp, iep
-        corners[k] = rh[0]
-        refs.append((s0, s1, w))
-    bh, bf = wf.batched_strip_pallas(
-        cfg, a_all, b_all, bh_all, bf_all, ih_all, ie_all, corners,
-        nj=nj, h_true=h, B=B)
-    bh = np.asarray(bh)
-    bf = np.asarray(bf)
-    lane = (h - 1) // cfg.alpha
-    for k, (s0, s1, w) in enumerate(refs):
-        ref = oracle.dp_rows(s0, s1, P, Recurrence.NEEDLEMAN_WUNSCH,
-                             InitType.WITH_GAPS, InitType.WITH_GAPS)
-        np.testing.assert_array_equal(bh[k, lane : lane + w],
+        out = wf.strip_scan(cfg, a, b, bus_h, bus_f, ih, ie,
+                            np.int32(rh[0]), np.int32(n), np.int32(m))
+        np.testing.assert_array_equal(np.asarray(out["bus_h"])[:n],
                                       ref.last_h[1:])
-        np.testing.assert_array_equal(bf[k, lane : lane + w],
+        np.testing.assert_array_equal(np.asarray(out["bus_f"])[:n],
                                       ref.last_f[1:])
-
-
-def test_batched_strip_pallas_dyn_mixed_heights():
-    """The dynamic-height batched kernel: one call, PER-ELEMENT strip
-    heights (multiples of alpha*128), every element's flush row exact
-    against the oracle — the property that collapses stage 4's Mosaic
-    compile keys to (cfg, njq, B)."""
-    import numpy as np
-
-    from masa_tpu.models.scoring import border_cells
-    from masa_tpu.ops import oracle
-    from masa_tpu.ops import wavefront as wf
-    from masa_tpu.types import InitType, Recurrence, ScoreParams
-
-    P = ScoreParams()
-    cfg = WavefrontConfig(alpha=2, rs=2, chunk=256,
-                          recurrence=Recurrence.NEEDLEMAN_WUNSCH,
-                          track_best=False, store_lastcol=False,
-                          interpret=True)
-    gran = cfg.alpha * 128          # 256; R = 512 -> a real height MIX
-    R = cfg.rows
-    rng = np.random.default_rng(5)
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    B, nj = 3, 512                  # nj far wider than any element: the
-    heights = [R, gran, R]          # 512, 256, 512; per-element ngs skip
-    plen = wf.padded_len(cfg, nj)
-    a_all = np.empty((B, cfg.alpha, cfg.rs, 128), np.int32)
-    ih_all = np.empty_like(a_all)
-    ie_all = np.empty_like(a_all)
-    b_all = np.full((B, plen), wf.B_SENTINEL, np.int32)
-    bh_all = np.full((B, plen), -wf.INF, np.int32)
-    bf_all = np.full((B, plen), -wf.INF, np.int32)
-    corners = np.zeros(B, np.int32)
-    frs = np.zeros(B, np.int32)
-    refs = []
-    for k in range(B):
-        h = heights[k]
-        s0 = rng.choice(bases, R).astype(np.uint8)   # padded to R rows
-        w = [200, 256, 130][k]
-        s1 = rng.choice(bases, w).astype(np.uint8)
-        rh, _ = border_cells(w + 1, InitType.WITH_GAPS, P)
-        a_all[k] = wf.pack_strip_rows(cfg, s0.astype(np.int32))
-        b_all[k, :w] = s1
-        bh_all[k, :w] = rh[1:]
-        ch, ce = border_cells(R, InitType.WITH_GAPS, P, start=1)
-        ihp, iep = wf.pack_border_cols(cfg, ch, ce)
-        ih_all[k], ie_all[k] = ihp, iep
-        corners[k] = rh[0]
-        frs[k] = ((h - 1) // cfg.alpha) // 128
-        refs.append((s0[:h], s1, w, h))
-    ngs = np.asarray(
-        [(w + (h - 1) // cfg.alpha + cfg.chunk - 1) // cfg.chunk
-         for h, w in zip(heights, [200, 256, 130])], np.int32)
-    assert ngs.max() < wf._num_chunks(cfg, nj)  # skipping is real
-    bh, bf = wf.batched_strip_pallas_dyn(
-        cfg, a_all, b_all, bh_all, bf_all, ih_all, ie_all,
-        corners, frs, ngs, nj=nj, B=B)
-    bh = np.asarray(bh)
-    bf = np.asarray(bf)
-    for k, (s0, s1, w, h) in enumerate(refs):
-        ref = oracle.dp_rows(s0, s1, P, Recurrence.NEEDLEMAN_WUNSCH,
-                             InitType.WITH_GAPS, InitType.WITH_GAPS)
-        lane = (h - 1) // cfg.alpha
-        np.testing.assert_array_equal(bh[k, lane : lane + w],
-                                      ref.last_h[1:])
-        np.testing.assert_array_equal(bf[k, lane : lane + w],
-                                      ref.last_f[1:])
+    assert wf.strip_scan._cache_size() == 1
 
 
 def test_async_packed_special_pulls(dna, homolog, monkeypatch):
@@ -448,7 +383,7 @@ def test_async_packed_special_pulls(dna, homolog, monkeypatch):
     monkeypatch.setenv("MASA_TPU_FORCE_PACKED_PULL", "1")
     res = strips.run_partition(
         cfg, s0, s1, P, InitType.WITH_ZEROES, InitType.WITH_ZEROES,
-        backend="scan", special_every=R,
+        route="scan", special_every=R,
         on_special_row=lambda r, h, f: rows_async.append((r, h, f)),
     )
     monkeypatch.delenv("MASA_TPU_FORCE_PACKED_PULL")
@@ -496,8 +431,8 @@ class TestMidStripFlush:
         return s0, s1, nj, a, b, bus_h, bus_f, ih, ie, corner, ref
 
     def _check(self, out, ref, nj, cfg):
-        rows_h = np.asarray(out["rows_h"])
-        rows_f = np.asarray(out["rows_f"])
+        rows_h = np.asarray(out["rows_h"])[:, :nj]
+        rows_f = np.asarray(out["rows_f"])[:, :nj]
         n_int = cfg.rows // cfg.flush_every - 1
         assert rows_h.shape == (n_int, nj)
         for q in range(n_int):
@@ -509,9 +444,7 @@ class TestMidStripFlush:
                 canon(rows_f[q]), canon(ref.specials[r][1][1:]),
                 err_msg=f"interior F row {r}")
         # the boundary bus must be untouched by the capture rework
-        from masa_tpu.ops import wavefront as wf
-
-        bh = np.asarray(wf.slice_bus(cfg, out["bus_h"], nj, cfg.rows))
+        bh = np.asarray(out["bus_h"])[:nj]
         np.testing.assert_array_equal(canon(bh), canon(ref.last_h[1:]))
 
     def test_scan_interior_rows_vs_oracle(self, dna, homolog):
@@ -540,57 +473,40 @@ class TestMidStripFlush:
                             nj=nj, h_true=cfg.rows)
         self._check(out, ref, nj, cfg)
 
-    @pytest.mark.slow
-    def test_pallas_interior_rows_vs_oracle(self, dna, homolog):
-        from masa_tpu.ops import wavefront as wf
-
-        cfg = WavefrontConfig(alpha=4, rs=8, chunk=1024, track_best=True,
-                              flush_every=1024, interpret=True)
-        (s0, s1, nj, a, b, bus_h, bus_f, ih, ie, corner,
-         ref) = self._inputs(dna, homolog, cfg, cfg.rows, 1500,
-                             Recurrence.SMITH_WATERMAN)
-        out = wf.strip_pallas(cfg, a, b, bus_h, bus_f, ih, ie, corner,
-                              nj=nj, h_true=cfg.rows)
-        self._check(out, ref, nj, cfg)
-        assert ref.best == int(np.asarray(out["best_v"]).max())
-
 
 def test_snap_special_interval():
     from masa_tpu.ops.strips import snap_special_interval
 
     cfg = WavefrontConfig(alpha=32, rs=32, chunk=8192)  # R=131072
     # sub-strip: pow2 multiples of alpha*128 below R
-    assert snap_special_interval(482, cfg, "pallas") == 4096
-    assert snap_special_interval(4097, cfg, "pallas") == 8192
-    assert snap_special_interval(32768, cfg, "pallas") == 32768
+    assert snap_special_interval(482, cfg) == 4096
+    assert snap_special_interval(4097, cfg) == 8192
+    assert snap_special_interval(32768, cfg) == 32768
     # k >= rs rounds to strips
-    assert snap_special_interval(65537, cfg, "pallas") == 131072
-    assert snap_special_interval(131073, cfg, "pallas") == 262144
-    # non-pallas backends keep the strip rounding
-    assert snap_special_interval(482, cfg, "scan") == 131072
-    # interpret mode only honors sub-strip under the test override
-    icfg = WavefrontConfig(alpha=32, rs=32, chunk=8192, interpret=True)
-    assert snap_special_interval(482, icfg, "pallas") == 131072
+    assert snap_special_interval(65537, cfg) == 131072
+    assert snap_special_interval(131073, cfg) == 262144
+    # the GPU full-height strip: the flush grain is 512 rows
+    gcfg = WavefrontConfig(alpha=4, rs=1024, chunk=8192)  # R=524288
+    assert snap_special_interval(483, gcfg) == 512
+    assert snap_special_interval(11000, gcfg) == 16384
+    # a one-sublane strip cannot flush mid-strip
+    ccfg = WavefrontConfig(alpha=4, rs=1, chunk=512)
+    assert snap_special_interval(100, ccfg) == 512
 
 
-@pytest.mark.slow
-def test_run_partition_sub_strip_cadence(dna, homolog, monkeypatch):
+def test_run_partition_sub_strip_cadence(dna, homolog):
     """End-to-end sub-strip special rows through run_partition's fused
     path: interior + boundary rows from two full strips must match the
     oracle, with the tail partial strip contributing boundary rows only
     (consumers tolerate gaps)."""
-    import dataclasses
-
-    monkeypatch.setenv("MASA_TPU_FORCE_FUSED", "1")
-    cfg = WavefrontConfig(alpha=4, rs=8, chunk=1024, track_best=True,
-                          interpret=True)
+    cfg = WavefrontConfig(alpha=4, rs=8, chunk=1024, track_best=True)
     R = cfg.rows  # 4096
     se = 1024
     s0 = dna(2 * R + 500, seed=81)
     s1 = homolog(s0, seed=82)[:1500]
     res = strips.run_partition(
         cfg, s0, s1, P, InitType.WITH_ZEROES, InitType.WITH_ZEROES,
-        backend="pallas", special_every=se,
+        route="scan", special_every=se,
     )
     # all sub-strip rows of the two fused strips must be present
     fused_rows = [r for r in range(se, 2 * R + 1, se)]
@@ -607,3 +523,51 @@ def test_run_partition_sub_strip_cadence(dna, homolog, monkeypatch):
                                       err_msg=f"row {r} F")
     assert res.best == ref.best
     assert (res.best_i, res.best_j) == (ref.best_i, ref.best_j)
+
+
+def test_run_partition_two_phase_best(dna, homolog):
+    """>= 16 full strips engage the two-phase best (max-only phase 1,
+    replay of the winning strip from a checkpoint): the endpoint must
+    equal the oracle's, tie-break included."""
+    cfg = WavefrontConfig(alpha=4, rs=1, chunk=256, track_best=True)
+    s0 = dna(16 * cfg.rows + 40, seed=95)
+    s1 = homolog(s0, seed=96)[:300]
+    res = strips.run_partition(cfg, s0, s1, P, route="scan",
+                               want_last_row=False)
+    ref = oracle.dp_rows(s0, s1, P)
+    assert (res.best, res.best_i, res.best_j) == (
+        ref.best, ref.best_i, ref.best_j)
+
+
+@pytest.mark.parametrize("nj", [1, 2, 999, 1000])
+def test_escape_scan_matches_nibble_unpack(nj):
+    """The uint8 bit-test escape scan equals the full signed-nibble
+    unpack it replaced, including an odd width's padding nibble."""
+    from masa_tpu.ops import wavefront as wf
+
+    rng = np.random.default_rng(nj)
+    u = rng.integers(0, 256, (nj + 1) // 2).astype(np.uint8)
+    lo = (u & 0xF).astype(np.int64)
+    hi = (u >> 4).astype(np.int64)
+    lo[lo > 7] -= 16
+    hi[hi > 7] -= 16
+    dh = np.empty(2 * len(u), np.int64)
+    dh[0::2], dh[1::2] = lo, hi
+    np.testing.assert_array_equal(wf._escapes(u, nj),
+                                  np.nonzero(dh[:nj] == -8)[0])
+
+
+def test_gather_host_and_row_of():
+    import jax.numpy as jnp
+
+    from masa_tpu.ops import wavefront as wf
+
+    v = jnp.arange(100, dtype=jnp.int32) * 3
+    for idx in ([], [7], [0, 5, 99], list(range(0, 100, 9))):
+        got = wf._gather_host(v, np.asarray(idx, np.int64))
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, np.asarray(idx) * 3)
+    rows = jnp.arange(12, dtype=jnp.int32).reshape(3, 4)
+    for q in range(3):
+        np.testing.assert_array_equal(wf.row_of(rows, jnp.int32(q)),
+                                      np.asarray(rows)[q])

@@ -4,7 +4,7 @@ scale: column-sharded stage 1 (parallel/sharded over a virtual 8-device
 mesh) + SPECULATIVE traceback, asserting score AND alignment equality
 against the monolithic pipeline.
 
-Multi-chip TPU hardware does not exist in this environment; this is the
+Multi-card hardware is not needed for this check; this is the
 largest honest stand-in (the same pjit/shard_map code paths, CPU
 devices).  Size via MASA_SPECDRY_M (default 131072 — this host has ONE
 CPU core, so wall time scales hard with m^2).
